@@ -1,0 +1,194 @@
+"""Serving driver on one card: wave-at-a-time or continuous (in-flight)
+batching, the PyTorch counterpart of ``repro.launch.serve``.
+
+Default mode prefills one fixed request batch and decodes it in lockstep
+(``GenerationEngine``).  ``--continuous`` routes the requests through the
+``ContinuousGenerationEngine`` instead: a request queue feeds ``--slots``
+decode lanes through the block allocator, short requests retire early
+(``--length-spread`` carves per-request lengths), and freed slots admit
+queued requests mid-decode.  Every attention call goes through the
+hand-written CUDA kernel (``repro_torch.kernels.flash_attention``).
+
+Weights are random, drawn from ``--seed`` by a ``torch.Generator`` on the
+target device.  Runs on the card unless ``--device cpu`` is given;
+float32 matrix products run in full f32 (TF32 off).
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen-1.5b \\
+      --batch 8 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen-1.5b \\
+      --continuous --slots 4 --requests 12 --length-spread 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen-1.5b \\
+      --reduced --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.models import transformer as T
+from repro_torch.obs import log as obs_log
+from repro_torch.posttrain.engine import (
+    ContinuousGenerationEngine, GenerationEngine,
+)
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _request_lengths(n: int, gen: int, spread: float, seed: int):
+    """Per-request generated-token counts in [gen/spread, gen], seeded:
+    the mixed-length stream continuous batching exists for."""
+    rng = np.random.RandomState(seed)
+    lo = max(1, int(round(gen / max(spread, 1.0))))
+    return rng.randint(lo, gen + 1, size=n)
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
+    ap.add_argument("--arch", default="gemma2-9b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--data-axis", type=int, default=0,
+                    help="one card: 0 or 1 (no mesh in this port yet)")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="one card: 1 (no tensor parallelism yet)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--continuous", action="store_true",
+                    help="in-flight batching: a request queue over --slots "
+                         "decode lanes with block-allocated KV; short "
+                         "requests retire early and queued ones join "
+                         "mid-decode")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="continuous: decode lanes (the decode batch width)")
+    ap.add_argument("--requests", type=int, default=12,
+                    help="continuous: queued request count")
+    ap.add_argument("--length-spread", type=float, default=4.0,
+                    help="continuous: max/min generated-length ratio of the "
+                         "request stream")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="continuous: KV-block granularity (positions)")
+    ap.add_argument("--trace", default="",
+                    help="not yet ported (ROADMAP queue 1, telemetry)")
+    ap.add_argument("--metrics", default="",
+                    help="not yet ported (ROADMAP queue 1, telemetry)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--dtype", choices=tuple(DTYPES), default="float32")
+    obs_log.add_log_args(ap)
+    args = ap.parse_args(argv)
+    for flag in ("trace", "metrics"):
+        if getattr(args, flag):
+            ap.error(f"--{flag} is not yet ported to repro_torch (ROADMAP "
+                     f"queue 1, telemetry); use repro.launch.serve")
+    if args.data_axis not in (0, 1) or args.model_axis != 1:
+        ap.error("repro_torch serves on one card: --data-axis 0|1 and "
+                 "--model-axis 1 only")
+    return args
+
+
+def _device(args) -> torch.device:
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but torch finds no CUDA device; "
+                           "pass --device cpu to run on the CPU")
+    return torch.device(args.device)
+
+
+def build(args):
+    """(cfg, params, prompt tokens) of a run: random weights and prompts
+    from ``--seed``, drawn on the target device."""
+    device = _device(args)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = T.init_params(cfg, gen, DTYPES[args.dtype])
+    n = args.requests if args.continuous else args.batch
+    tokens = torch.randint(1, cfg.vocab_size, (n, args.prompt_len),
+                           generator=gen, device=device)
+    return cfg, params, tokens
+
+
+def make_engine(cfg, args) -> GenerationEngine:
+    return GenerationEngine(cfg, device=_device(args),
+                            dtype=DTYPES[args.dtype])
+
+
+def _serve_continuous(cfg, params, tokens, args, out) -> dict:
+    S, G = args.prompt_len, args.gen
+    engine = ContinuousGenerationEngine(
+        cfg, slots=args.slots, max_len=S + G, block_size=args.block_size,
+        device=_device(args), dtype=DTYPES[args.dtype])
+    engine.publish(params, 0)
+    lens = _request_lengths(args.requests, G, args.length_spread, args.seed)
+    prompts = tokens.cpu().numpy()
+    for b in range(args.requests):
+        engine.submit(prompts[b], int(lens[b]))
+    done = engine.run()
+    total = int(sum(len(c.generated) for c in done))
+    prefill_tok_s = args.requests * S / max(engine.prefill_s, 1e-9)
+    decode_tok_s = engine.decoded_tokens / max(engine.decode_s, 1e-9)
+    out.info(f"continuous: {len(done)} requests "
+             f"({total} generated tokens) over {args.slots} slots in "
+             f"{engine.steps} decode steps")
+    out.info(f"prefill {engine.prefills} x {S} tokens in "
+             f"{engine.prefill_s:.2f}s ({prefill_tok_s:.0f} tok/s); decoded "
+             f"{engine.decoded_tokens} tokens in {engine.decode_s:.2f}s "
+             f"({decode_tok_s:.1f} tok/s)")
+    out.info(f"kv blocks: {engine.allocator.num_blocks} x "
+             f"{engine.allocator.block_size} positions, all freed: "
+             f"{engine.allocator.free_blocks == engine.allocator.num_blocks}")
+    by_rid = {c.rid: c for c in done}
+    first = by_rid.get(0)
+    first_ids = [] if first is None else first.generated[:16].tolist()
+    if first is not None:  # --requests 0: nothing was admitted or decoded
+        out.info(f"req 0: {len(first.generated)} tokens "
+                 f"(weights v{first.weight_version}, {first.finish_reason}) "
+                 f"ids: {first_ids}")
+    ids = np.concatenate([c.generated for c in done]) if done else \
+        np.zeros(0, np.int32)
+    return {"mode": "continuous", "num_layers": cfg.num_layers,
+            "prefill_calls": engine.prefills, "decode_steps": engine.steps,
+            "prefill_tok_s": prefill_tok_s, "decode_tok_s": decode_tok_s,
+            "generated_tokens": total, "first_ids": first_ids,
+            "ids_in_vocab": bool(((ids >= 0) & (ids < cfg.vocab_size)).all())}
+
+
+def run(args) -> dict:
+    """Serve one run as the flags say; returns its summary."""
+    out = obs_log.from_args("serve", args)
+    cfg, params, tokens = build(args)
+    mode = "continuous" if args.continuous else "wave"
+    out.info(f"{cfg.name} device={args.device} dtype={args.dtype} "
+             f"mode={mode} prompt={args.prompt_len} gen={args.gen}")
+    if args.continuous:
+        return _serve_continuous(cfg, params, tokens, args, out)
+
+    B, S = tokens.shape
+    res = make_engine(cfg, args).generate(params, tokens, args.gen)
+    prefill_tok_s = B * S / max(res.prefill_s, 1e-9)
+    decode_tok_s = B * (args.gen - 1) / max(res.decode_s, 1e-9)
+    out.info(f"prefill {B}x{S} in {res.prefill_s:.2f}s "
+             f"({prefill_tok_s:.0f} tok/s)")
+    out.info(f"decoded {args.gen - 1} steps x {B} requests in "
+             f"{res.decode_s:.2f}s ({decode_tok_s:.1f} tok/s)")
+    out.info(f"sample output ids: {res.generated[0, :16].tolist()}")
+    ids = res.generated
+    return {"mode": "wave", "num_layers": cfg.num_layers,
+            "prefill_calls": 1, "decode_steps": args.gen - 1,
+            "prefill_tok_s": prefill_tok_s, "decode_tok_s": decode_tok_s,
+            "generated_tokens": int(ids.size),
+            "first_ids": ids[0, :16].tolist(), "generated": ids,
+            "ids_in_vocab": bool(((ids >= 0) & (ids < cfg.vocab_size)).all())}
+
+
+def main(argv=None):
+    run(parse_args(argv))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
