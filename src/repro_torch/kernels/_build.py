@@ -25,12 +25,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_PI = ctypes.POINTER(ctypes.c_int)
+_RING = [_P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P]
 
-# C entry point and argument types of each kernel library
+# C entry points of each kernel library and their argument types
 SIGNATURES = {
-    "flash_attention": ("repro_flash_attention_fwd",
-                        [_P] * 8 + [_I] * 7 + [_L] * 12
-                        + [_I, _I, _F, _F, _P]),
+    "flash_attention": {
+        "repro_flash_attention_fwd": [_P] * 8 + [_I] * 7 + [_L] * 12
+                                     + [_I, _I, _F, _F, _P]},
+    "odc_gather": {"repro_odc_gather": _RING,
+                   "repro_odc_gather_capacity": [_PI]},
+    "odc_scatter": {"repro_odc_scatter": _RING,
+                    "repro_odc_scatter_capacity": [_I, _PI]},
 }
 
 _libs: dict = {}
@@ -48,7 +54,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    """The library of ``name``, keyed by its source and the shared
+    headers it may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 
 
@@ -84,15 +95,18 @@ def build_all(names=tuple(SIGNATURES)) -> dict:
 
 
 def library(name: str):
-    """The loaded C entry point of kernel ``name``, built on first use."""
-    fn = _libs.get(name)
-    if fn is None:
+    """The loaded library of kernel ``name``, built on first use; its C
+    entry points (``SIGNATURES[name]``) are attributes with their argument
+    types set, each returning a CUDA error code."""
+    lib = _libs.get(name)
+    if lib is None:
         target = _target(name)
         if not target.exists():
             build_all((name,))
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(target)), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = fn
-    return fn
+        lib = ctypes.CDLL(str(target))
+        for symbol, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib

@@ -4,6 +4,8 @@ of ``repro.models.transformer``.
     init_params(cfg, gen, dtype)                   -> params dict
     apply(cfg, params, batch, ...)                 -> (logits, aux, caches)
     init_cache(cfg, batch, max_len, dtype, device) -> decode caches dict
+    loss(cfg, params, batch, ...)                  -> (loss, metrics)
+    loss_ranks(cfg, params_list, batches, ...)     -> [(loss, metrics)]
 
 The params dict has the JAX tree's key names, with the per-layer leaves
 stacked on a leading ``(L, ...)`` axis, so ``bridge.params_from_numpy``
@@ -14,6 +16,7 @@ what the attention kernel needs.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -54,6 +57,29 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                                        device=gen.device)
     params["layers"] = _dense_block_params(gen, cfg, dtype,
                                            (cfg.num_layers,))
+    return params
+
+
+def param_shapes(cfg: ModelConfig):
+    """The tree ``init_params`` builds, as meta tensors (shapes only)."""
+    _require_dense(cfg)
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+    qd, kvd, hd = cfg.q_dim, cfg.kv_dim, cfg.resolved_head_dim
+    attn = {"wq": meta(L, d, qd), "wk": meta(L, d, kvd),
+            "wv": meta(L, d, kvd), "wo": meta(L, qd, d)}
+    if cfg.qk_norm:
+        attn["q_norm"] = meta(L, hd)
+        attn["k_norm"] = meta(L, hd)
+    mlp = {"w_up": meta(L, d, f), "w_down": meta(L, f, d)}
+    if cfg.activation in ("swiglu", "geglu"):
+        mlp["w_gate"] = meta(L, d, f)
+    params = {"embed": meta(cfg.vocab_size, d)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = meta(d, cfg.vocab_size)
+    params["final_norm"] = meta(d)
+    params["layers"] = {"attn_norm": meta(L, d), "attn": attn,
+                        "mlp_norm": meta(L, d), "mlp": mlp}
     return params
 
 
@@ -132,3 +158,87 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ===========================================================================
+# training forward and loss
+# ===========================================================================
+def _identity(trees):
+    return trees
+
+
+def forward_ranks(cfg: ModelConfig, params_list, batches, *,
+                  remat: bool = False, pxform=None):
+    """Final hidden states of several ranks' batches, run in lockstep layer
+    by layer (no caches): the training forward, ``_forward_dense`` of the
+    JAX package for each rank.
+
+    ``pxform(trees)`` maps the ranks' parameter subtrees (a list, one per
+    rank) to the trees the layer computes with: the FSDP hook, as
+    ``pxform`` in the JAX package, but over every rank at once so that a
+    per-layer gather is one call for all ranks.  It sees the top-level
+    leaves once, then each layer's slice inside the layer loop.
+    ``remat=True`` recomputes each layer, hook included, in the backward
+    pass (``jax.checkpoint`` around the scan body)."""
+    _require_dense(cfg)
+    px = pxform or _identity
+    tops = px([{k: v for k, v in p.items() if k != "layers"}
+               for p in params_list])
+    xs = [_embed(cfg, t, b) for t, b in zip(tops, batches)]
+
+    def body(i, xs, layer_trees):
+        full = px(layer_trees)
+        return [_apply_dense_block(
+            cfg, lp, x, window=layer_window(cfg, i),
+            positions=b.get("positions"), segment_ids=b.get("segment_ids"),
+            cache=None, cache_index=None)[0]
+            for lp, x, b in zip(full, xs, batches)]
+
+    for i in range(cfg.num_layers):
+        layer_trees = [_layer(p["layers"], i) for p in params_list]
+        if remat:
+            xs = checkpoint(body, i, xs, layer_trees, use_reentrant=False)
+        else:
+            xs = body(i, xs, layer_trees)
+    return tops, xs
+
+
+def _loss_from_hidden(cfg, top, x, batch, reduction):
+    logits = _logits(cfg, top, x).float()
+    targets = batch["targets"].long()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=logits.device)
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = (logz - tgt) * mask
+    tokens = mask.abs().sum()
+    if reduction == "sum":
+        total = nll.sum()
+        return total, {"ce_sum": total, "aux": 0.0, "tokens": tokens}
+    ce = nll.sum() / torch.clamp(tokens, min=1.0)
+    return ce, {"ce": ce, "aux": 0.0, "tokens": tokens}
+
+
+def loss_ranks(cfg: ModelConfig, params_list, batches, *,
+               remat: bool = False, pxform=None, reduction: str = "mean"):
+    """``loss`` of several ranks' batches in one lockstep forward (see
+    ``forward_ranks``); returns one (loss, metrics) per rank."""
+    tops, xs = forward_ranks(cfg, params_list, batches, remat=remat,
+                             pxform=pxform)
+    return [_loss_from_hidden(cfg, t, x, b, reduction)
+            for t, x, b in zip(tops, xs, batches)]
+
+
+def loss(cfg: ModelConfig, params, batch, *, remat: bool = False,
+         reduction: str = "mean"):
+    """Weighted token cross-entropy (weights = ``loss_mask``; signed
+    weights carry advantages), ``repro.models.transformer.loss``.
+
+    reduction='sum' returns the un-normalized nll sum, which the FSDP
+    engines accumulate across microbatches before normalizing by the
+    global token count.  Returns (loss, metrics) with metrics["tokens"] =
+    sum |loss_mask|.  The dense family has no auxiliary loss."""
+    return loss_ranks(cfg, [params], [batch], remat=remat,
+                      reduction=reduction)[0]

@@ -25,8 +25,27 @@ def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
+# modules the scans must reach, the train slice's among them
+REQUIRED = (
+    "kernels/flash_attention.py", "kernels/odc_gather.py",
+    "kernels/odc_scatter.py", "kernels/_ring.py", "kernels/_build.py",
+    "core/odc.py", "core/ranks.py", "core/fsdp.py", "core/backend.py",
+    "core/train_step.py", "optim/adamw.py", "optim/schedules.py",
+    "data/lengths.py", "data/packing.py", "data/loader.py",
+    "balance/cost.py", "balance/kk.py", "balance/strategies.py",
+    "launch/train.py", "launch/serve.py", "bridge.py",
+)
+
+
 def _sources():
     return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_scans_cover_every_module_of_the_port():
+    scanned = {str(p.relative_to(PORT)) for p in _sources()
+               if PORT in p.parents}
+    assert set(REQUIRED) <= scanned, sorted(set(REQUIRED) - scanned)
+    assert (REPO / "chip_smoke.py") in _sources()
 
 
 def _imports(tree):
@@ -83,8 +102,10 @@ def test_importing_the_port_loads_no_jax_or_repro():
         "    configs.get_config(a)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+        "missing = [m for m in %r if m not in names]\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 20 else 0)\n"
+        % (["repro_torch." + r[:-3].replace("/", ".") for r in REQUIRED],))
     env = dict(os.environ,
                PYTHONPATH=os.pathsep.join([str(REPO / "src"), str(REPO)]))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
