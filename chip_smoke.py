@@ -1,10 +1,13 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the port's kernels,
 holds each one to its plain PyTorch version on the card (flash attention
-forward and gradient, the ODC ring gather and scatter-accumulate), serves
-full-width qwen-1.5b through the serve entry point in both modes, trains
-full-width qwen-1.5b with two ranks on the card through the train entry
-point (ODC x minibatch and collective x layer), and times each kernel
-against its bound and its library yardstick.
+forward and gradient, the ODC ring gather and scatter-accumulate, their
+chained-layer versions and the per-layer flags between a chained ring and
+the compute stream), serves full-width qwen-1.5b through the serve entry
+point in both modes, trains full-width qwen-1.5b with two ranks on the
+card through the train entry point (ODC x minibatch, collective x layer
+and ODC under the overlap schedule), profiles a train step of the first
+and the last, saves and resumes a reduced overlap run, and times each
+kernel against its bound and its library yardstick.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -76,13 +79,19 @@ SEED = 0
 # ranks on the one card, LongAlign lengths planned by LB-Mini.
 TRAIN = dict(data_axis=2, steps=3, max_tokens=4096, max_len=4096,
              minibatch_per_device=4)
-TRAIN_CONFIGS = (("odc", "minibatch"), ("collective", "layer"))
+# the first config is the reference the others are held to
+TRAIN_CONFIGS = (("collective", "layer"), ("odc", "minibatch"),
+                 ("odc-overlap", "overlap"))
 # ring cases: ranks, shard elements, dtypes
 RING_NS = (2, 3, 4, 8)
 RING_SIZES = (1, 1000, 2 ** 20)
 # qwen-1.5b's largest leaf, the stacked w_up (28, 1536, 8960), as each of
 # 2 ranks holds it; and a 2**24-element shard on 4 ranks
 W_UP_SHARD = (28, 768, 8960)
+# chained ring cases: layers (28 on 4 and 8 ranks: 84 and 196 hops, above
+# the single-leaf kernels' tag stride of 64), and the ragged per-layer
+# shard of each case
+LAYER_RING_LS = (1, 3, 28)
 
 
 def fail(msg: str):
@@ -407,6 +416,185 @@ def phase_rings() -> dict:
     return {"cases": len(cases), "rel": worst_rel}
 
 
+def _layer_ring_case(n, order, dtype, L, c, g):
+    """The chained gather, the chained scatter, and the chained scatter
+    in backward layer order accumulating into a start value, each against
+    its plain version (bitwise)."""
+    from repro_torch.kernels import odc_gather as G
+    from repro_torch.kernels import odc_scatter as S
+
+    xs = [torch.randn((L, c, 3), generator=g, device="cuda").to(dtype)
+          for _ in range(n)]
+    out = G.odc_gather_layers(xs, order)
+    torch.cuda.synchronize()
+    ref = G.odc_gather_layers_plain(xs, order)
+    gather_ok = all(torch.equal(a, b) for a, b in zip(out, ref))
+    del xs, out, ref
+    ys = [torch.randn((L, n * c, 3), generator=g, device="cuda").to(dtype)
+          for _ in range(n)]
+    out = S.odc_scatter_accumulate_layers(ys, order)
+    torch.cuda.synchronize()
+    ref = S.odc_scatter_accumulate_layers_plain(ys, order)
+    scatter_ok = all(torch.equal(a, b) for a, b in zip(out, ref))
+    start = [torch.randn((L, c, 3), generator=g, device="cuda").to(dtype)
+             for _ in range(n)]
+    acc = [a.clone() for a in start]
+    S.odc_scatter_accumulate_layers(ys, order, reverse=True, out=acc)
+    torch.cuda.synchronize()
+    ref = [a + b for a, b in zip(start, S.odc_scatter_accumulate_layers_plain(
+        ys, order, reverse=True))]
+    acc_ok = all(torch.equal(a, b) for a, b in zip(acc, ref))
+    return gather_ok, scatter_ok, acc_ok
+
+
+def phase_layer_rings() -> dict:
+    """Both chained kernels against their plain versions over every case;
+    then a grid that cannot be resident is refused before it runs."""
+    from repro_torch.kernels import _ring
+    from repro_torch.kernels import odc_gather as G
+    from repro_torch.kernels import odc_scatter as S
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    bad, ok, hops = [], 0, 0
+    cases = [(n, order, dtype, L) for n in RING_NS
+             for order in _ring_orders(n)
+             for dtype in (torch.float32, torch.bfloat16)
+             for L in LAYER_RING_LS]
+    for i, (n, order, dtype, L) in enumerate(cases):
+        c = 997 + 13 * i  # ragged: no multiple of 8
+        res = _layer_ring_case(n, order, dtype, L, c, g)
+        hops = max(hops, L * (n - 1))
+        tag = (f"n={n} order={order or 'natural'} "
+               f"{str(dtype).replace('torch.', '')} L={L} c={c}x3")
+        if all(res):
+            ok += 1
+        else:
+            bad.append(f"{tag}: gather {res[0]} scatter {res[1]} "
+                       f"reversed+accumulate {res[2]}")
+    torch.cuda.empty_cache()
+    with torch.cuda.device(0):
+        cap = _ring.capacity(_build_lib("odc_gather"),
+                             "repro_odc_gather_layers_capacity")
+    log(f"chained ring kernels: {len(cases)} cases (n in {RING_NS}, natural "
+        f"and profile-ordered, float32 and bfloat16, L in {LAYER_RING_LS}, "
+        f"ragged shards, up to {hops} hops in a launch): gather, scatter and "
+        f"reversed accumulating scatter bitwise equal to the plain rings in "
+        f"{ok}; grid capped at 1/{_ring.CHAIN_SHARE} of the card's "
+        f"{cap} co-resident blocks (the gather kernel's occupancy)")
+    if bad:
+        fail("chained ring kernels disagree with the plain rings:\n  "
+             + "\n  ".join(bad))
+    xs = [torch.ones((3, 64), device="cuda") for _ in range(2)]
+    ys = [torch.ones((3, 128), device="cuda") for _ in range(2)]
+    for fn, mod, args in ((G.odc_gather_layers, G, xs),
+                          (S.odc_scatter_accumulate_layers, S, ys)):
+        before = mod.layers_launches
+        try:
+            fn(args, blocks_per_rank=1 << 20)
+        except RuntimeError as e:
+            log(f"chained ring refusal: {e}")
+        else:
+            fail(f"{fn.__name__} launched a grid that cannot be co-resident")
+        if mod.layers_launches != before:
+            fail(f"{fn.__name__} counted a refused launch")
+    out = G.odc_gather_layers(xs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(o, torch.ones((3, 128), device="cuda"))
+               for o in out):
+        fail("odc_gather_layers after a refused launch is wrong")
+    return {"cases": len(cases), "max_hops": hops, "cap": cap}
+
+
+def _build_lib(name):
+    from repro_torch.kernels import _build
+
+    return _build.library(name)
+
+
+# the late-partner case: qwen's 28 layers on 2 ranks, 2**22 float32 per
+# layer's shard, and the compute stream sleeping this many cycles before
+# it writes each layer of the scatter's input
+FLAG_CASE = dict(n=2, L=28, c=2 ** 22)
+FLAG_SLEEP_CYCLES = 2_000_000
+
+
+def phase_layer_flags() -> dict:
+    """The per-layer flags against a late partner.  Scatter: launched
+    first on a side stream over an input (NaN until written) that the
+    compute stream writes afterwards, layer by layer from the last, each
+    after a sleep, each followed by its ready flag; the kernel must wait
+    for every flag.
+    Gather: launched on the side stream, the compute stream reads each
+    layer after waiting for that layer's done counter, and records how
+    many layers were still in flight when it read the first.  Both results
+    bitwise equal to the plain rings."""
+    from repro_torch.kernels import _ring
+    from repro_torch.kernels import odc_gather as G
+    from repro_torch.kernels import odc_scatter as S
+
+    n, L, c = FLAG_CASE["n"], FLAG_CASE["L"], FLAG_CASE["c"]
+    dev = torch.device("cuda", 0)
+    _ring.probe_stream_memops(dev)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    side = torch.cuda.Stream()
+    vals = [torch.randn((L, n * c), generator=g, device="cuda")
+            for _ in range(n)]
+    ys = [torch.full_like(v, float("nan")) for v in vals]
+    acc = [torch.zeros((L, c), device="cuda") for _ in range(n)]
+    ready = _ring.LayerReady(L, dev)
+    ready.arm()
+    # every kernel the loop below launches runs once first: CUDA loads a
+    # kernel's module at its first launch and may synchronise the context
+    # to do so, which would wait for the scatter that waits for the loop
+    torch.cuda._sleep(1)
+    torch.empty_like(vals[0][0]).copy_(vals[0][0])
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        S.odc_scatter_accumulate_layers(ys, reverse=True, out=acc,
+                                        ready=ready)
+    t0 = time.perf_counter()
+    for layer in reversed(range(L)):
+        torch.cuda._sleep(FLAG_SLEEP_CYCLES)
+        for y, v in zip(ys, vals):
+            y[layer].copy_(v[layer])
+        ready.set(layer)
+    torch.cuda.synchronize()
+    scatter_s = time.perf_counter() - t0
+    ref = S.odc_scatter_accumulate_layers_plain(vals, reverse=True)
+    scatter_ok = all(torch.equal(a, b) for a, b in zip(acc, ref))
+    del vals, ys, acc, ref
+
+    xs = [torch.randn((L, c), generator=g, device="cuda") for _ in range(n)]
+    outs = [torch.empty((L, n * c), device="cuda") for _ in range(n)]
+    done = _ring.LayerDone(L, dev)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        G.odc_gather_layers(xs, out=outs, done=done)
+    reads, in_flight = [], None
+    for layer in range(L):
+        done.wait(layer)
+        reads.append([o[layer].clone() for o in outs])
+        if layer == 0:  # the counters as the compute stream saw them
+            in_flight = done.words.clone()
+    torch.cuda.synchronize()
+    pending = int((in_flight.long() < done.target).sum())
+    ref = G.odc_gather_layers_plain(xs)
+    gather_ok = all(torch.equal(reads[l][r], ref[r][l]) for l in range(L)
+                    for r in range(n))
+    del xs, outs, reads, ref
+    torch.cuda.empty_cache()
+    log(f"chained flags, late partner (n={n}, L={L}, {c} float32 per layer "
+        f"shard): scatter launched first, its input written layer by layer "
+        f"after a {FLAG_SLEEP_CYCLES}-cycle sleep each ({scatter_s:.3f} s "
+        f"in all): bitwise equal to the plain ring {scatter_ok}; gather "
+        f"read layer by layer after each wait, {pending} of {L} layers "
+        f"still in flight when layer 0 was read: bitwise equal {gather_ok}")
+    if not (scatter_ok and gather_ok):
+        fail("the chained rings' per-layer flags let a stream read or write "
+             "out of turn")
+    return {"scatter_s": scatter_s, "in_flight_at_first_read": pending}
+
+
 def phase_ring_refusal():
     """A launch whose blocks cannot all be resident raises before it
     runs, and the card is usable after it."""
@@ -441,12 +629,7 @@ def _serve_args(extra):
 
 def phase_serve() -> dict:
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import odc_gather as G
-    from repro_torch.kernels import odc_scatter as S
-    from repro_torch.launch import serve
-
-    kernels = {"flash_attention": fa, "odc_gather": G,
-               "odc_scatter_accumulate": S}
+    from repro_torch.launch import serve, train
 
     results = {}
     runs = {
@@ -459,16 +642,16 @@ def phase_serve() -> dict:
                        "--prompt-len", str(CONT["prompt_len"]),
                        "--gen", str(CONT["gen"])],
     }
-    total = dict.fromkeys(kernels, 0)
+    total = dict.fromkeys(train.KERNELS, 0)
     for mode, extra in runs.items():
-        for mod in kernels.values():
-            mod.launches = 0
+        train.reset_launches()
         summary = serve.run(_serve_args(extra))
         torch.cuda.synchronize()
-        got = {name: mod.launches for name, mod in kernels.items()}
+        got = train.read_launches()
         for name, count in got.items():
             total[name] += count
         n = got["flash_attention"]
+        rings = {k: v for k, v in got.items() if k != "flash_attention"}
         L = summary["num_layers"]
         want = L * (summary["prefill_calls"] + summary["decode_steps"])
         log(f"serve {mode}: prefill {summary['prefill_tok_s']:.1f} tok/s, "
@@ -476,11 +659,11 @@ def phase_serve() -> dict:
             f"flash_attention launches {n} (want {L} layers x "
             f"({summary['prefill_calls']} prefill calls + "
             f"{summary['decode_steps']} decode steps) = {want}), ring "
-            f"launches {got['odc_gather']} + {got['odc_scatter_accumulate']}"
-            f" (want 0), first ids {summary['first_ids'][:8]}")
+            f"launches {rings} (want 0), first ids "
+            f"{summary['first_ids'][:8]}")
         if n != want or n == 0:
             fail(f"{mode}: {n} kernel launches, want {want}")
-        if got["odc_gather"] or got["odc_scatter_accumulate"]:
+        if any(rings.values()):
             fail(f"{mode}: serving launched a ring kernel")
         if not summary["ids_in_vocab"]:
             fail(f"{mode}: generated ids outside the vocabulary")
@@ -600,10 +783,23 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
     top = [p for p in sharded if p[0] != fsdp.STACK_KEY]
     per_layer = len(sharded) - len(top)
     want = {"flash_attention": 0, "odc_gather": 0,
-            "odc_scatter_accumulate": 0}
-    ring = comm == "odc"
+            "odc_scatter_accumulate": 0, "odc_gather_layers": 0,
+            "odc_scatter_accumulate_layers": 0}
+    ring = comm in ("odc", "odc-overlap")
     for st in summary["steps"]:
-        if schedule == "minibatch":
+        if schedule == "overlap":
+            # microbatch j of every rank in lockstep, padded to M: per
+            # round one chained gather and one chained scatter carry the
+            # trunk, the top-level leaves go through the single-leaf rings
+            # once each way, and every layer runs its attention in the
+            # forward and the recompute
+            M = st["microbatches"]
+            want["flash_attention"] += 2 * L * summary["world"] * M
+            want["odc_gather"] += M * len(top) * ring
+            want["odc_scatter_accumulate"] += M * len(top) * ring
+            want["odc_gather_layers"] += M * ring
+            want["odc_scatter_accumulate_layers"] += M * ring
+        elif schedule == "minibatch":
             # each rank runs only its real microbatches; every leaf is
             # gathered once and scattered once per step
             want["flash_attention"] += 2 * L * sum(st["counts"])
@@ -621,10 +817,89 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
     return want
 
 
-def _profile_train_step() -> dict:
-    """Where one ODC x minibatch train step's time goes: host wall time of
-    a step without the profiler, then device time per kernel class from a
-    torch.profiler trace of the same step (same batch, next parameters)."""
+def _merge(intervals):
+    """Union of (start, end) intervals, sorted and disjoint."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(a, b, merged):
+    """Length of [a, b) inside the union ``merged``."""
+    import bisect
+
+    i = max(0, bisect.bisect_right([m[0] for m in merged], a) - 1)
+    total = 0.0
+    for lo, hi in merged[i:]:
+        if lo >= b:
+            break
+        total += max(0.0, min(b, hi) - max(a, lo))
+    return total
+
+
+CHAINED = ("odc_gather_layers_kernel", "odc_scatter_layers_kernel")
+COPY_LABELS = ("overlap.pack", "overlap.unpack", "overlap.write_cotangents")
+
+
+def _overlap_timeline(path) -> dict:
+    """From a train step's trace: the chained kernels' device time, the
+    part of it that lies under other (compute) kernels on the timeline,
+    the device time of the kernels launched under each copy label of
+    ``core.overlap``, and the device's busy time (the union of every
+    kernel's interval, since two streams run at once)."""
+    import bisect
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    chained = [e for e in kernels
+               if any(c in e["name"].lower() for c in CHAINED)]
+    compute = _merge([(e["ts"], e["ts"] + e["dur"]) for e in kernels
+                      if e not in chained])
+    busy = sum(b - a for a, b in _merge(
+        [(e["ts"], e["ts"] + e["dur"]) for e in kernels]))
+    chained_us = sum(e["dur"] for e in chained)
+    under_us = sum(_covered(e["ts"], e["ts"] + e["dur"], compute)
+                   for e in chained)
+    # kernel -> the copy label its launch was issued under (same thread)
+    labels = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in COPY_LABELS:
+            labels.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e["dur"], e["name"]))
+    for spans in labels.values():
+        spans.sort()
+    by_corr = {}
+    for e in events:
+        if e.get("cat") != "cuda_runtime" or e["tid"] not in labels:
+            continue
+        spans = labels[e["tid"]]
+        i = bisect.bisect_right([sp[0] for sp in spans], e["ts"]) - 1
+        if i >= 0 and e["ts"] <= spans[i][1]:
+            by_corr[e["args"].get("correlation")] = spans[i][2]
+    copies = dict.fromkeys(COPY_LABELS, 0.0)
+    for e in kernels:
+        name = by_corr.get(e["args"].get("correlation"))
+        if name:
+            copies[name] += e["dur"] / 1e3
+    by_kernel = {c: sum(e["dur"] for e in chained if c in e["name"].lower())
+                 / 1e3 for c in CHAINED}
+    return {"chained_ms": chained_us / 1e3, "chained_by_kernel": by_kernel,
+            "chained_under_compute_ms": under_us / 1e3,
+            "chained_launches": len(chained), "copies_ms": copies,
+            "busy_ms": busy / 1e3}
+
+
+def _profile_train_step(comm="odc", schedule="minibatch") -> dict:
+    """Where one train step's time goes: host wall time of a step without
+    the profiler, then device time per kernel class from a torch.profiler
+    trace of the same step (same batch, next parameters).  For the overlap
+    schedule also the chained rings' time under compute, the packing
+    copies, and the busy time as the union of the kernels' intervals."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.balance.cost import CostModel
@@ -637,7 +912,7 @@ def _profile_train_step() -> dict:
 
     cfg = get_config(ARCH)
     ranks = RankGroup.make(TRAIN["data_axis"], "cuda")
-    tr = Trainer(cfg, ranks, comm="odc", schedule="minibatch")
+    tr = Trainer(cfg, ranks, comm=comm, schedule=schedule)
     shards, opt = tr.init_state(T.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED)))
     loader = SyntheticSFTLoader(
@@ -666,34 +941,51 @@ def _profile_train_step() -> dict:
         t0 = time.perf_counter()
         step()
         wall_prof = (time.perf_counter() - t0) * 1e3
-    dev, n_kernels = _device_ms(prof, "train_trace.json", 1, {
+    tag = f"{comm} x {tr.schedule}"
+    name = f"train_trace_{comm}_{tr.schedule}.json"
+    dev, n_kernels = _device_ms(prof, name, 1, {
         "flash_attention": ("attn_fwd",),
+        "odc_chained": CHAINED,
         "odc_rings": ("odc_gather_kernel", "odc_scatter_kernel"),
         "gemm": ("gemm", "gemv", "cutlass", "xmma")})
     busy = sum(dev.values())
-    log(f"train step profile (odc x minibatch, step 0's batch, "
-        f"{tokens:.0f} tokens, microbatches {counts}): host {wall:.1f} ms "
-        f"({wall_prof:.1f} under the profiler), device busy {busy:.1f} ms "
-        f"= " + " + ".join(f"{k} {v:.1f}" for k, v in dev.items())
+    result = {"host_ms": wall, "host_ms_profiled": wall_prof,
+              "device_ms": dev, "kernels": n_kernels}
+    extra = ""
+    if tr.schedule == "overlap":
+        tl = _overlap_timeline(os.path.join(ROOT, "build", name))
+        busy = tl["busy_ms"]
+        result["overlap"] = tl
+        share = (tl["chained_under_compute_ms"] / tl["chained_ms"]
+                 if tl["chained_ms"] else 0.0)
+        extra = (f"; chained rings {tl['chained_ms']:.2f} ms in "
+                 f"{tl['chained_launches']} launches "
+                 f"({', '.join(f'{k} {v:.2f}' for k, v in tl['chained_by_kernel'].items())}), "
+                 f"{tl['chained_under_compute_ms']:.2f} ms of it under "
+                 f"compute kernels ({share:.1%}); copies "
+                 + ", ".join(f"{k} {v:.2f} ms"
+                             for k, v in tl["copies_ms"].items())
+                 + "; busy is the union of kernel intervals")
+    result["busy_ms"] = busy
+    result["idle"] = max(0.0, 1 - busy / wall)
+    log(f"train step profile ({tag}, step 0's batch, {tokens:.0f} tokens, "
+        f"microbatches {counts}): host {wall:.1f} ms ({wall_prof:.1f} under "
+        f"the profiler), device busy {busy:.1f} ms; kernel time "
+        + " + ".join(f"{k} {v:.1f}" for k, v in dev.items())
         + f", {n_kernels} kernels, device idle "
-        f"{max(0.0, 1 - busy / wall):.1%} of the step")
+        f"{result['idle']:.1%} of the step{extra}")
     if busy <= 0:
         fail("train step profile: the trace holds no device time")
     del shards, opt, tr
-    return {"host_ms": wall, "device_ms": dev, "kernels": n_kernels}
+    return result
 
 
 def phase_train() -> dict:
     import gc
     from repro_torch.core import fsdp
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import odc_gather as G
-    from repro_torch.kernels import odc_scatter as S
     from repro_torch.configs import get_config
     from repro_torch.launch import train
 
-    kernels = {"flash_attention": fa, "odc_gather": G,
-               "odc_scatter_accumulate": S}
     runs = {}
     for comm, schedule in TRAIN_CONFIGS:
         args = train.parse_args([
@@ -706,11 +998,10 @@ def phase_train() -> dict:
             "--max-len", str(TRAIN["max_len"]),
             "--minibatch-per-device", str(TRAIN["minibatch_per_device"])])
         torch.cuda.reset_peak_memory_stats()
-        for mod in kernels.values():
-            mod.launches = 0
+        train.reset_launches()
         summary = train.run(args)
         torch.cuda.synchronize()
-        got = {name: mod.launches for name, mod in kernels.items()}
+        got = train.read_launches()
         cfg = get_config(ARCH)
         dims = summary["dims"]
         if any(fsdp.get(dims, p) is None for p in fsdp.tree_paths(dims)):
@@ -733,30 +1024,86 @@ def phase_train() -> dict:
         runs[tag] = summary
         gc.collect()
         torch.cuda.empty_cache()
-    (a, ra), (b, rb) = runs.items()
-    l0a, l0b = ra["losses"][0], rb["losses"][0]
-    if l0a != l0b:
-        fail(f"train step-0 losses differ: {a} {l0a!r}, {b} {l0b!r} (the "
-             f"same parameters and batches through the same forward)")
-    gna, gnb = (r["steps"][0]["grad_norm"] for r in (ra, rb))
-    gn_rel = abs(gna - gnb) / gnb
-    rel = max(abs(x - y) / abs(y) for x, y in zip(ra["losses"][1:],
-                                                   rb["losses"][1:]))
-    log(f"train: step-0 losses equal ({l0a!r}); step-0 gradient norms "
-        f"{a} {gna!r}, {b} {gnb!r}, {gn_rel:.2e} relative (tol "
-        f"{GRAD_NORM_RTOL:g}); later losses agree to {rel:.2e} relative "
-        f"(tol {TRAIN_LOSS_RTOL:g})")
-    if not math.isfinite(gna) or gn_rel > GRAD_NORM_RTOL:
-        fail(f"train: {a} and {b} step-0 gradient norms differ by "
-             f"{gn_rel:.2e}")
-    if rel > TRAIN_LOSS_RTOL:
-        fail(f"train: {a} and {b} losses after step 0 differ by {rel:.2e}")
+    (b, rb), *others = runs.items()
+    for a, ra in others:
+        l0a, l0b = ra["losses"][0], rb["losses"][0]
+        if l0a != l0b:
+            fail(f"train step-0 losses differ: {a} {l0a!r}, {b} {l0b!r} "
+                 f"(the same parameters and batches through the same "
+                 f"forward)")
+        gna, gnb = (r["steps"][0]["grad_norm"] for r in (ra, rb))
+        gn_rel = abs(gna - gnb) / gnb
+        rel = max(abs(x - y) / abs(y) for x, y in zip(ra["losses"][1:],
+                                                       rb["losses"][1:]))
+        log(f"train {a} against {b}: step-0 losses equal ({l0a!r}); step-0 "
+            f"gradient norms {gna!r} and {gnb!r}, {gn_rel:.2e} relative "
+            f"(tol {GRAD_NORM_RTOL:g}); later losses agree to {rel:.2e} "
+            f"relative (tol {TRAIN_LOSS_RTOL:g})")
+        if not math.isfinite(gna) or gn_rel > GRAD_NORM_RTOL:
+            fail(f"train: {a} and {b} step-0 gradient norms differ by "
+                 f"{gn_rel:.2e}")
+        if rel > TRAIN_LOSS_RTOL:
+            fail(f"train: {a} and {b} losses after step 0 differ by "
+                 f"{rel:.2e}")
     gc.collect()
     torch.cuda.empty_cache()
-    _profile_train_step()
-    gc.collect()
-    torch.cuda.empty_cache()
-    return runs
+    profiles = {}
+    for comm, schedule in (("odc", "minibatch"), ("odc-overlap", "overlap")):
+        profiles[f"{comm} x {schedule}"] = _profile_train_step(comm,
+                                                               schedule)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"runs": runs, "profiles": profiles}
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: save and resume a reduced overlap run on the card
+# ---------------------------------------------------------------------------
+def phase_checkpoint() -> dict:
+    """Reduced qwen, 2 ranks, odc-overlap: 2 steps and a checkpoint, then
+    a resumed run to step 3, against 3 steps run straight: the losses and
+    the final parameters bitwise equal."""
+    import shutil
+
+    from repro_torch.launch import train
+
+    ckpt = os.path.join(ROOT, "build", "ckpt_smoke")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    base = ["--arch", ARCH, "--reduced", "--seed", str(SEED), "--device",
+            "cuda", "--data-axis", "2", "--comm", "odc-overlap",
+            "--quiet"]
+    straight = train.run(train.parse_args(base + ["--steps", "3"]),
+                         return_params=True)
+    first = train.run(train.parse_args(base + [
+        "--steps", "2", "--ckpt-dir", ckpt, "--save-every", "2"]))
+    train.reset_launches()
+    resumed = train.run(train.parse_args(base + [
+        "--steps", "3", "--ckpt-dir", ckpt, "--resume"]), return_params=True)
+    losses = first["losses"] + resumed["losses"]
+    params_equal = all(
+        torch.equal(a, b) for a, b in zip(_leaves(straight["params"]),
+                                          _leaves(resumed["params"])))
+    chained = resumed["launches"]["odc_gather_layers"]
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"checkpoint (reduced {ARCH}, 2 ranks, odc-overlap): saved at "
+        f"{first['saved']}, resumed at step {resumed['start_step']}; losses "
+        f"{losses} against straight {straight['losses']}: equal "
+        f"{losses == straight['losses']}; final parameters bitwise equal "
+        f"{params_equal}; chained gathers in the resumed step {chained}")
+    if first["saved"] != [2] or resumed["start_step"] != 2:
+        fail("checkpoint: the run did not save at step 2 and resume there")
+    if losses != straight["losses"] or not params_equal:
+        fail("checkpoint: save and resume is not bitwise equal to a run "
+             "without a break")
+    if chained == 0:
+        fail("checkpoint: the resumed overlap run launched no chained ring")
+    return {"losses": losses}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
 
 
 # ---------------------------------------------------------------------------
@@ -863,6 +1210,80 @@ def _ring_times(kind, n, shape) -> dict:
             "library_ms": lib_ms}
 
 
+def _train_trunk_shard():
+    """(L, c_flat) of the trunk as each of the train runs' ranks holds it
+    packed: qwen's 28 layers and the 9 per-layer leaves' shards."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import fsdp
+    from repro_torch.core.overlap import LayerPacking
+    from repro_torch.models import transformer as T
+
+    shapes = T.param_shapes(get_config(ARCH))
+    n = TRAIN["data_axis"]
+    packing = LayerPacking(shapes, fsdp.leaf_dims(shapes, n), n)
+    return packing.num_layers, packing.c_flat
+
+
+def _layer_ring_times(kind, n, L, c) -> dict:
+    """Kernel, plain and library times of one chained ring kernel on n
+    ranks' float32 (L, c) shards (the gather) or (L, n*c) contributions
+    (the scatter), its max |diff| from the plain version, and its byte
+    bound: each shard read once and each output written once,
+    (n + n^2) * c * L * 4 bytes at 3.35 TB/s for either kernel.  Library
+    yardsticks: one ``torch.stack`` per rank (gather), one ``sum(0)`` per
+    layer over every rank's contributions (scatter)."""
+    from repro_torch.kernels import _ring
+    from repro_torch.kernels import odc_gather as G
+    from repro_torch.kernels import odc_scatter as S
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    if kind == "gather":
+        xs = [torch.randn((L, c), generator=g, device="cuda")
+              for _ in range(n)]
+        max_err = max(float((a - b).abs().max()) for a, b in zip(
+            G.odc_gather_layers(xs), G.odc_gather_layers_plain(xs)))
+        torch.cuda.empty_cache()
+        ms = _time_ms(lambda: G.odc_gather_layers(xs), iters=5, warmup=1)
+        plain_ms = _time_ms(lambda: G.odc_gather_layers_plain(xs), iters=5,
+                            warmup=1)
+        lib_ms = _time_ms(lambda: [torch.stack(xs, dim=1) for _ in range(n)],
+                          iters=5, warmup=1)
+        cap = _ring.capacity(_build_lib("odc_gather"),
+                             "repro_odc_gather_layers_capacity")
+        del xs
+    else:
+        ys = [torch.randn((L, n * c), generator=g, device="cuda")
+              for _ in range(n)]
+        max_err = max(float((a - b).abs().max()) for a, b in zip(
+            S.odc_scatter_accumulate_layers(ys),
+            S.odc_scatter_accumulate_layers_plain(ys)))
+        torch.cuda.empty_cache()
+        ms = _time_ms(lambda: S.odc_scatter_accumulate_layers(ys), iters=5,
+                      warmup=1)
+        plain_ms = _time_ms(lambda: S.odc_scatter_accumulate_layers_plain(ys),
+                            iters=5, warmup=1)
+        stacked = torch.stack(ys).view(n, L, n, c)
+        lib_ms = _time_ms(lambda: [stacked[:, l].sum(0) for l in range(L)],
+                          iters=5, warmup=1)
+        cap = _ring.capacity(_build_lib("odc_scatter"),
+                             "repro_odc_scatter_layers_capacity", 0)
+        del ys, stacked
+    blocks = _ring.chain_blocks_per_rank(c * 4, n, cap)
+    bound_ms = (n + n * n) * c * L * 4 / PEAK_BYTES * 1e3
+    name = ("odc_gather_layers" if kind == "gather"
+            else "odc_scatter_accumulate_layers")
+    shape_s = (f"n={n} float32 (L, c) = ({L}, {c}) "
+               f"({L * c * 4 / 2 ** 30:.2f} GiB per rank), {blocks} blocks "
+               f"per rank of {cap} co-resident")
+    log(f"time {name} {shape_s}: kernel {ms:.4f} ms, bound {bound_ms:.4f} "
+        f"ms (bytes), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"kernel/bound {ms / bound_ms:.1f}x")
+    torch.cuda.empty_cache()
+    return {"shape": shape_s, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": lib_ms}
+
+
 def phase_times(errs, grad_errs, serve_launches, train_runs) -> list:
     """One record per kernel: its numbers at the first shape, and at each
     measured shape under ``per_shape``; launches over the serve and train
@@ -870,7 +1291,7 @@ def phase_times(errs, grad_errs, serve_launches, train_runs) -> list:
     from repro_torch.kernels import flash_attention as fa
 
     by_path = {}
-    for name in ("flash_attention", "odc_gather", "odc_scatter_accumulate"):
+    for name in serve_launches:
         by_path[name] = {"serve": serve_launches[name]}
         for tag, run in train_runs.items():
             by_path[name][f"train {tag}"] = run["launches"][name]
@@ -921,6 +1342,19 @@ def phase_times(errs, grad_errs, serve_launches, train_runs) -> list:
                         "launches": sum(by_path[name].values()),
                         "launches_by_path": by_path[name], **ring[0],
                         "per_shape": ring})
+    L, c = _train_trunk_shard()
+    for kind, name, src, replaces in (
+            ("gather", "odc_gather_layers", "odc_gather.cu",
+             "src/repro/kernels/odc_gather.py:199"),
+            ("scatter", "odc_scatter_accumulate_layers", "odc_scatter.cu",
+             "src/repro/kernels/odc_scatter.py:176")):
+        rec = _layer_ring_times(kind, TRAIN["data_axis"], L, c)
+        records.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{src}",
+                        "replaces": replaces,
+                        "launches": sum(by_path[name].values()),
+                        "launches_by_path": by_path[name], **rec,
+                        "per_shape": [rec]})
     return records
 
 
@@ -932,9 +1366,13 @@ def main() -> int:
     grad_errs = phase_flash_grad()
     phase_rings()
     phase_ring_refusal()
+    phase_layer_rings()
+    phase_layer_flags()
     served = phase_serve()
     trained = phase_train()
-    records = phase_times(errs, grad_errs, served["launches"], trained)
+    phase_checkpoint()
+    records = phase_times(errs, grad_errs, served["launches"],
+                          trained["runs"])
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
     print(env["smi"])
     print(json.dumps({"kernels": records}))

@@ -12,8 +12,11 @@ their full tensors:
                   on the card, the plain rings of ``core.odc`` on the CPU.
                   A ``DeviceProfile``'s ring order is honoured.
 
-``hier``, ``pipe``, ``pipe-int8``, ``cp`` and ``odc-overlap`` (and the
-``overlap`` and ``1f1b`` schedules) are not yet ported and raise.
+  ``odc-overlap`` ``odc`` with the overlap schedule implied (alias
+                  ``overlap``, as in the JAX registry).
+
+``hier``, ``pipe``, ``pipe-int8`` and ``cp`` (and the ``1f1b`` schedule)
+are not yet ported and raise.
 
 ``param_gather`` is the differentiable gather: a ``torch.autograd.Function``
 over every rank's shard whose backward is the backend's scatter-accumulate
@@ -31,6 +34,16 @@ the gradient scatter-accumulate (``CommBackend.param_gather``).
                    runs its own microbatches and accumulates the full-size
                    gradients locally, and one scatter-accumulate per leaf
                    runs at the minibatch's end.
+  ``'overlap'``    'layer' software-pipelined: ranks in lockstep, gathers
+                   and scatters once per microbatch, but layer l+1's
+                   parameters are issued before layer l computes
+                   (``core.odc.prefetch_scan``) and the backward scatters
+                   layer l+1 before layer l.  With ``collective`` that is
+                   the issue order of plain concatenations; with a ring
+                   backend the trunk moves through the chained ring
+                   kernels, one gather and one scatter launch per round on
+                   a side stream (``core.overlap``), and only the top-level
+                   leaves through the single-leaf rings.
 """
 from __future__ import annotations
 
@@ -38,18 +51,22 @@ from typing import Callable, List, Sequence
 
 import torch
 
-from repro_torch.core import fsdp, odc
+from repro_torch.core import fsdp, odc, overlap
 from repro_torch.kernels import odc_gather as kgather
 from repro_torch.kernels import odc_scatter as kscatter
 
 SCHEDULES = ("layer", "minibatch", "overlap", "1f1b")
-_PORTED_SCHEDULES = ("layer", "minibatch")
+_PORTED_SCHEDULES = ("layer", "minibatch", "overlap")
 
 
 class CommBackend:
     """One communication strategy over the ranks' per-rank lists."""
 
     name = "?"
+    #: the schedule this backend forces (``resolve``), or None
+    implied_schedule = None
+    #: the overlap schedule moves the trunk through the chained rings
+    chained = False
 
     def gather(self, shards, order=None) -> List[torch.Tensor]:
         """Per-rank (c, ...) shards -> per-rank (n*c, ...) full tensors."""
@@ -121,6 +138,7 @@ class ODCBackend(CommBackend):
     ring kernels on CUDA tensors, the plain rings on CPU tensors."""
 
     name = "odc"
+    chained = True
 
     def gather(self, shards, order=None):
         return kgather.odc_gather(shards, order)
@@ -129,15 +147,25 @@ class ODCBackend(CommBackend):
         return kscatter.odc_scatter_accumulate(ys, order)
 
 
+class OverlapODCBackend(ODCBackend):
+    """ODC with the double-buffered prefetch issue order: the same rings
+    (bitwise the same values), the overlap schedule implied."""
+
+    name = "odc-overlap"
+    implied_schedule = "overlap"
+
+
 COLLECTIVE = CollectiveBackend()
 ODC = ODCBackend()
-_REGISTRY = {"collective": COLLECTIVE, "odc": ODC}
+ODC_OVERLAP = OverlapODCBackend()
+_REGISTRY = {"collective": COLLECTIVE, "odc": ODC,
+             "odc-overlap": ODC_OVERLAP, "overlap": ODC_OVERLAP}
 #: registry names of the JAX package that this port does not have yet
-NOT_PORTED = ("odc-overlap", "overlap", "hier", "pipe", "pipe-int8", "cp",
-              "cp-ring")
+NOT_PORTED = ("hier", "pipe", "pipe-int8", "cp", "cp-ring")
 
 
 def backend_names():
+    """Every registry name, aliases included."""
     return tuple(sorted(_REGISTRY))
 
 
@@ -155,8 +183,11 @@ def get_backend(name) -> CommBackend:
 
 
 def resolve(comm, schedule: str):
-    """(backend, schedule) for an engine config."""
+    """(backend, schedule) for an engine config: the backend may force its
+    implied schedule (``comm='odc-overlap'`` => ``schedule='overlap'``);
+    otherwise the caller's schedule is honoured unchanged."""
     backend = get_backend(comm)
+    schedule = backend.implied_schedule or schedule
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}; one of {SCHEDULES}")
     if schedule not in _PORTED_SCHEDULES:
@@ -219,13 +250,16 @@ def trainable(tree):
 
 
 def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
-                        dims, order=None):
+                        dims, order=None, chain=None):
     """The gradient loop of one minibatch over all ranks.
 
-      loss_ranks(params_list, batches, pxform) -> [(nll_sum, tokens)]
+      loss_ranks(params_list, batches, pxform, prefetch)
+                  -> [(nll_sum, tokens)]
                   one lockstep forward of the ranks' batches
       dims        tree of each leaf's sharded dim (``fsdp.leaf_dims``)
       order       the rings' order (None = natural)
+      chain       schedule 'overlap' with a ring backend: the Trainer's
+                  ``core.overlap.ChainedLayers``
 
     Returns grad_core(shards, microbatches, counts) -> (lsums, toks,
     grads): per rank, the nll sum and token count over its microbatches
@@ -251,7 +285,7 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
             for r in range(n):
                 compute, g = trainable(full[r])
                 for mb in microbatches[r][:counts[r]]:
-                    l, t = loss_ranks([compute], [mb], None)[0]
+                    l, t = loss_ranks([compute], [mb], None, None)[0]
                     l.backward()
                     lsums[r] = lsums[r] + l.detach()
                     toks[r] = toks[r] + t
@@ -281,24 +315,51 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
         d = lay_dims if set(trees[0]) == set(lay_dims) else top_dims
         return _gather_trees(backend, trees, d, order, True)
 
+    chained = schedule == "overlap" and chain is not None
+
     def grad_core(shards, microbatches, counts):
         n = len(shards)
         M = len(microbatches[0])
-        pairs = [trainable(s) for s in shards]
+        if chained:
+            # the trunk's sharded leaves move through the chained rings;
+            # the top-level leaves and replicated per-layer leaves are
+            # trainable here, as in the 'layer' schedule
+            chain.begin_step(shards)
+            pairs = [trainable(_unpacked(s, chain.packing)) for s in shards]
+            for c, _ in pairs:
+                c.setdefault(fsdp.STACK_KEY, {})
+        else:
+            pairs = [trainable(s) for s in shards]
         compute = [c for c, _ in pairs]
         lsums = [zero(fsdp.get(s, ("final_norm",))) for s in shards]
         toks = list(lsums)
         for j in range(M):
+            if chained:
+                chain.begin_round()
+                anchor = torch.zeros((), device=chain.device,
+                                     requires_grad=True)
+                prefetch = overlap.ChainedPrefetch(chain, anchor)
+            elif schedule == "overlap":
+                prefetch = _LayerPrefetch(backend, lay_dims, order)
+            else:
+                prefetch = None
             outs = loss_ranks(compute, [microbatches[r][j] for r in range(n)],
-                              pxform)
+                              pxform, prefetch)
             total = outs[0][0]
             for l, _ in outs[1:]:
                 total = total + l
             total.backward()
+            if chained:
+                chain.after_backward()
             for r, (l, t) in enumerate(outs):
                 lsums[r] = lsums[r] + l.detach()
                 toks[r] = toks[r] + t
         grads = [g for _, g in pairs]
+        if chained:
+            for g, trunk in zip(grads, chain.end_step()):
+                for path in fsdp.tree_paths(trunk):
+                    fsdp.put(g, (fsdp.STACK_KEY,) + path,
+                             fsdp.get(trunk, path))
         # a replicated leaf's gradient is summed over the ranks
         for path in fsdp.tree_paths(dims):
             if fsdp.get(dims, path) is None:
@@ -308,6 +369,35 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
         return lsums, toks, grads
 
     return grad_core
+
+
+class _LayerPrefetch:
+    """The overlap schedule's hook without chained rings: issuing layer i
+    gathers its sharded leaves through ``param_gather`` (for
+    ``collective``, plain concatenations), and the gathered trees are what
+    the layer computes with."""
+
+    def __init__(self, backend, lay_dims, order):
+        self.backend, self.lay_dims, self.order = backend, lay_dims, order
+
+    def issue(self, layer, trees):
+        return _gather_trees(self.backend, trees, self.lay_dims, self.order,
+                             True)
+
+    def materialize(self, full):
+        return full
+
+
+def _unpacked(shard_tree, packing):
+    """A rank's shard tree without the per-layer leaves that the chained
+    rings carry (the top-level leaves, and any replicated per-layer
+    leaf)."""
+    out = {k: v for k, v in shard_tree.items() if k != fsdp.STACK_KEY}
+    layers = {}
+    for path in packing.replicated:
+        fsdp.put(layers, path, fsdp.get(shard_tree[fsdp.STACK_KEY], path))
+    out[fsdp.STACK_KEY] = layers
+    return out
 
 
 def _sum_over_ranks(ys: Sequence[torch.Tensor]) -> List[torch.Tensor]:

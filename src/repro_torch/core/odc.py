@@ -19,12 +19,17 @@ equal to ``repro.core.odc.ring_gather`` / ``ring_scatter_accumulate``:
 ``None`` is the natural ring.  The hand-written kernels
 (``repro_torch.kernels.odc_gather`` / ``odc_scatter``) run the same
 protocol on the card and take these functions as their plain versions.
+
+``prefetch_scan`` is the overlap schedule's layer loop
+(``repro.core.odc.prefetch_scan``): layer l+1's parameters are issued
+before layer l computes.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def ring_order(n: int, device_profile=None) -> Optional[List[int]]:
@@ -127,3 +132,38 @@ def collective_scatter(ys: Sequence[torch.Tensor]) -> List[torch.Tensor]:
             acc = acc + ys[s][r * c:(r + 1) * c].to(y.device)
         out.append(acc)
     return out
+
+
+def prefetch_scan(body: Callable, x, layer_trees: Callable, num_layers: int,
+                  prefetch, remat: bool = False):
+    """Layer loop with one-slot-ahead parameter prefetch
+    (schedule='overlap'), the counterpart of ``repro.core.odc.
+    prefetch_scan`` for a Python loop over every rank at once.
+
+    ``prefetch.issue(i, layer_trees(i))`` starts materializing layer i's
+    parameters (the ranks' shard subtrees) and returns a handle;
+    ``prefetch.materialize(handle)`` returns the ranks' full layer trees.
+    Iteration i issues layer i+1 *before* running ``body(i, x, full)``, so
+    layer i+1's gather has no data dependence on layer i's compute.  The
+    backward pass mirrors it: layer i+1's gradient scatter is emitted
+    before layer i's backward.
+
+    Under ``remat`` each iteration's ``body`` is recomputed in the
+    backward pass, with the handle as a saved input: the recompute
+    materializes the layer from what was issued and does not issue it
+    again (the JAX note: "the gathered layers are saved rather than
+    re-gathered").  Unlike the JAX scan, the last iteration issues nothing
+    (the JAX carry gathers layer 0 again and discards it)."""
+    def step(i, x, handle):
+        return body(i, x, prefetch.materialize(handle))
+
+    cur = prefetch.issue(0, layer_trees(0))
+    for i in range(num_layers):
+        nxt = (prefetch.issue(i + 1, layer_trees(i + 1))
+               if i + 1 < num_layers else None)
+        if remat:
+            x = checkpoint(step, i, x, cur, use_reentrant=False)
+        else:
+            x = step(i, x, cur)
+        cur = nxt
+    return x

@@ -7,6 +7,14 @@ every gradient shard divided by the global token count; then AdamW on each
 rank's shards with the global gradient norm (``_grad_minibatch`` and
 ``step`` of the JAX engine).  As with the JAX engine's ``remat=True``,
 each layer is recomputed in the backward pass.
+
+The overlap schedule's materialize-ahead hook (``gspmd.pxform_overlap``
+and the ``prefetch`` it hands to ``build_schedule_grad``): with a ring
+backend the Trainer owns a ``core.overlap.ChainedLayers`` (the trunk's
+packing, the side stream and the per-layer signals, kept across steps),
+whose per-round ``ChainedPrefetch`` materializes each layer from the
+chained gather; with ``collective`` the hook gathers layer l+1 through
+``param_gather`` one iteration ahead.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend as B
-from repro_torch.core import fsdp, odc
+from repro_torch.core import fsdp, odc, overlap
 from repro_torch.core.ranks import RankGroup
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -57,16 +65,21 @@ class Trainer:
         self.order = odc.ring_order(n, self.device_profile)
         shapes = T.param_shapes(self.cfg)
         self.dims = fsdp.leaf_dims(shapes, n)
+        self.chain = None
+        if self.schedule == "overlap" and self.backend.chained:
+            self.chain = overlap.ChainedLayers(
+                overlap.LayerPacking(shapes, self.dims, n),
+                self.ranks.devices, self.order)
 
-        def loss_ranks(params_list, batches, pxform):
+        def loss_ranks(params_list, batches, pxform, prefetch):
             outs = T.loss_ranks(self.cfg, params_list, batches,
                                 remat=True, pxform=pxform,
-                                reduction="sum")
+                                prefetch=prefetch, reduction="sum")
             return [(l, m["tokens"]) for l, m in outs]
 
         self._grad_core = B.build_schedule_grad(
             self.schedule, loss_ranks=loss_ranks, backend=self.backend,
-            dims=self.dims, order=self.order)
+            dims=self.dims, order=self.order, chain=self.chain)
 
     # -- state --------------------------------------------------------------
     def init_state(self, params):
@@ -76,6 +89,30 @@ class Trainer:
 
     def unshard(self, shards, device="cpu"):
         return fsdp.unshard_params(shards, self.dims, device)
+
+    def state_tree(self, shards, opt_states, device="cpu"):
+        """The train state as one unsharded tree, the JAX driver's
+        checkpoint layout: ``{"params": ..., "opt": {"m", "v", "step"}}``."""
+        return {"params": self.unshard(shards, device),
+                "opt": {"m": self.unshard([o["m"] for o in opt_states],
+                                          device),
+                        "v": self.unshard([o["v"] for o in opt_states],
+                                          device),
+                        "step": opt_states[0]["step"].to(device)}}
+
+    def state_like(self):
+        """The keys of ``state_tree`` (meta tensors as leaves)."""
+        shapes = T.param_shapes(self.cfg)
+        return {"params": shapes, "opt": {"m": shapes, "v": shapes,
+                                          "step": torch.empty(())}}
+
+    def restore(self, tree):
+        """(shards, optimizer states) of a ``state_tree`` of numpy arrays
+        (as ``checkpoint.load_checkpoint`` returns it)."""
+        from repro_torch import bridge
+
+        return bridge.train_state_from_numpy(tree["params"], tree["opt"],
+                                             self)
 
     # -- batches ------------------------------------------------------------
     def split_batch(self, batch) -> List[List[dict]]:

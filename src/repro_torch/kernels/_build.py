@@ -27,6 +27,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _PI = ctypes.POINTER(ctypes.c_int)
 _RING = [_P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P]
+# the chained rings: the ring's arguments up to the credits, the tag base,
+# then layers and the per-layer signal words (gather: done; scatter:
+# reverse, accumulate, ready, ready value), then the stream
+_GATHER_LAYERS = _RING[:-2] + [ctypes.c_ulonglong, _I, _P, _P]
+_SCATTER_LAYERS = _RING[:-2] + [ctypes.c_ulonglong, _I, _I, _I, _P,
+                                ctypes.c_uint, _P]
 
 # C entry points of each kernel library and their argument types
 SIGNATURES = {
@@ -34,9 +40,13 @@ SIGNATURES = {
         "repro_flash_attention_fwd": [_P] * 8 + [_I] * 7 + [_L] * 12
                                      + [_I, _I, _F, _F, _P]},
     "odc_gather": {"repro_odc_gather": _RING,
-                   "repro_odc_gather_capacity": [_PI]},
+                   "repro_odc_gather_capacity": [_PI],
+                   "repro_odc_gather_layers": _GATHER_LAYERS,
+                   "repro_odc_gather_layers_capacity": [_PI]},
     "odc_scatter": {"repro_odc_scatter": _RING,
-                    "repro_odc_scatter_capacity": [_I, _PI]},
+                    "repro_odc_scatter_capacity": [_I, _PI],
+                    "repro_odc_scatter_layers": _SCATTER_LAYERS,
+                    "repro_odc_scatter_layers_capacity": [_I, _PI]},
 }
 
 _libs: dict = {}

@@ -1,5 +1,7 @@
-"""What the two ODC ring kernels' wrappers share: input checks, the block
-count, the device-side flag state and the launch through ``ctypes``.
+"""What the ODC ring kernels' wrappers share: input checks, the block
+count, the device-side flag state, the launch through ``ctypes``, and the
+per-layer signals between a chained ring on a side stream and the compute
+stream (the driver's stream memory operations).
 
 Every rank of the ring lies on one card in this version, so one launch
 runs every rank's side of every hop.  The flags and credits that the
@@ -21,6 +23,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BYTES_PER_BLOCK = 1 << 16
 # cudaErrorCooperativeLaunchTooLarge
 TOO_LARGE = 720
+# A chained ring (odc_gather_layers, odc_scatter_accumulate_layers) runs
+# beside the compute kernels of a training step, so its grid takes at most
+# 1/CHAIN_SHARE of the blocks the card can hold at once (all ranks
+# together), and a single-leaf ring takes at most 1 - 2/CHAIN_SHARE of
+# them: either cooperative grid can be resident while the other runs.
+CHAIN_SHARE = 16
 
 
 def check(tensors: Sequence[torch.Tensor], what: str) -> torch.device:
@@ -50,6 +58,18 @@ def check(tensors: Sequence[torch.Tensor], what: str) -> torch.device:
     return t0.device
 
 
+def check_out(out: Sequence[torch.Tensor], like: torch.Tensor, shape,
+              what: str):
+    """Raises unless every tensor of ``out`` is contiguous, of this shape,
+    and of ``like``'s dtype and device."""
+    for o in out:
+        if tuple(o.shape) != tuple(shape) or o.dtype != like.dtype \
+                or o.device != like.device or not o.is_contiguous():
+            raise ValueError(f"{what}: out must be contiguous {tuple(shape)} "
+                             f"{like.dtype} on {like.device}, got "
+                             f"{tuple(o.shape)} {o.dtype} on {o.device}")
+
+
 def order_table(n: int, order: Optional[Sequence[int]]):
     """ctypes int array of the ring order (position -> rank)."""
     order = list(range(n)) if order is None else [int(r) for r in order]
@@ -65,10 +85,19 @@ def pointers(tensors: Sequence[torch.Tensor]):
 
 class RingState:
     """Flags, credits and the epoch counter of one ring kernel on one
-    device, grown as a launch needs more blocks."""
+    device, grown as a launch needs more blocks; for a chained ring, the
+    host counter of its tag base instead of the device epoch."""
 
     def __init__(self):
         self._by_device = {}
+        self._base = {}
+
+    def take_base(self, device: torch.device, hops: int) -> int:
+        """The tag base of a chained launch of ``hops`` hops; the next
+        launch's base is above every tag of this one."""
+        base = self._base.get(device, 0)
+        self._base[device] = (base + hops + 1) & 0xFFFFFFFF
+        return base
 
     def get(self, device: torch.device, n: int, blocks: int):
         flags, credits, epoch = self._by_device.get(
@@ -95,10 +124,19 @@ def capacity(lib, symbol: str, *args) -> int:
 
 
 def blocks_per_rank(nbytes: int, n: int, cap: int) -> int:
-    """Blocks for each rank: one per ``BYTES_PER_BLOCK`` of the shard, as
-    many as fit on the card at once with every rank's blocks resident."""
+    """Blocks for each rank of a single-leaf ring: one per
+    ``BYTES_PER_BLOCK`` of the shard, as many as fit on the card at once
+    with every rank's blocks resident and room left for a chained ring."""
     want = max(1, -(-nbytes // BYTES_PER_BLOCK))
-    return max(1, min(want, cap // n))
+    return max(1, min(want, (cap - 2 * (cap // CHAIN_SHARE)) // n))
+
+
+def chain_blocks_per_rank(nbytes: int, n: int, cap: int) -> int:
+    """Blocks for each rank of a chained ring: one per ``BYTES_PER_BLOCK``
+    of a layer's shard, at most 1/CHAIN_SHARE of the card over all
+    ranks."""
+    want = max(1, -(-nbytes // BYTES_PER_BLOCK))
+    return max(1, min(want, (cap // CHAIN_SHARE) // n))
 
 
 def refuse(name: str, n: int, blocks: int, cap: int, device):
@@ -109,23 +147,141 @@ def refuse(name: str, n: int, blocks: int, cap: int, device):
 
 
 def launch(fn, name: str, ins, outs, stages, order, elems: int, code: int,
-           blocks: int, cap: int, state: RingState, device: torch.device):
-    """Launch ``fn`` on the current stream and advance the epoch; raises
-    on a refused launch, before anything ran.  ``cap`` is the card's
-    co-resident block count for this kernel; the C side checks it too."""
+           blocks: int, cap: int, state: RingState, device: torch.device,
+           extra=(), hops=None):
+    """Launch ``fn`` on the current stream; raises on a refused launch,
+    before anything ran.  ``cap`` is the card's co-resident block count
+    for this kernel; the C side checks it too.  A single-leaf ring reads
+    its epoch from the device counter, which is advanced after the launch;
+    a chained ring (``hops`` given) gets its tag base from the host
+    counter instead, and nothing is enqueued behind it (odc_ring.cuh).
+    ``extra`` are the arguments after the epoch or tag base, before the
+    stream."""
     n = len(ins)
     if n * blocks > cap:
         refuse(name, n, blocks, cap, device)
     flags, credits, epoch = state.get(device, n, blocks)
     stream = torch.cuda.current_stream(device).cuda_stream
+    tag = epoch.data_ptr() if hops is None else state.take_base(device, hops)
     with torch.cuda.device(device):
         err = fn(pointers(ins), pointers(outs), pointers(stages),
                  order_table(n, order), n, elems, code, blocks,
-                 flags.data_ptr(), credits.data_ptr(), epoch.data_ptr(),
-                 stream)
+                 flags.data_ptr(), credits.data_ptr(), tag, *extra, stream)
     if err == TOO_LARGE:
         refuse(name, n, blocks, cap, device)
     if err != 0:
         raise RuntimeError(f"{name} kernel failed to launch: CUDA error "
                            f"{err}")
-    epoch.add_(1)
+    if hops is None:
+        epoch.add_(1)
+
+
+# ---------------------------------------------------------------------------
+# per-layer signals between a chained ring and the compute stream
+# ---------------------------------------------------------------------------
+_cu = None
+_MEMOPS = ("cuStreamWaitValue32_v2", "cuStreamWriteValue32_v2")
+
+
+def _driver():
+    """The CUDA driver library, with its stream memory operations typed:
+    fn(stream, address, value, flags) -> CUresult.  Raises when the
+    driver lacks them."""
+    global _cu
+    if _cu is None:
+        lib = ctypes.CDLL("libcuda.so.1")
+        for symbol in _MEMOPS:
+            if not hasattr(lib, symbol):
+                raise RuntimeError(
+                    f"the CUDA driver has no {symbol}: the overlap schedule "
+                    f"needs stream memory operations")
+            fn = getattr(lib, symbol)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint32,
+                           ctypes.c_uint]
+            fn.restype = ctypes.c_int
+        _cu = lib
+    return _cu
+
+
+def _memop(symbol: str, stream, address: int, value: int):
+    err = getattr(_driver(), symbol)(stream, address, value & 0xFFFFFFFF, 0)
+    if err != 0:
+        raise RuntimeError(
+            f"{symbol} failed with CUresult {err}: the card refuses stream "
+            f"memory operations, which the overlap schedule needs")
+
+
+def stream_wait(address: int, value: int, stream=None):
+    """The stream (default: the current one) waits until the 32-bit word
+    at ``address`` has reached ``value`` in cyclic order
+    (CU_STREAM_WAIT_VALUE_GEQ)."""
+    stream = stream or torch.cuda.current_stream()
+    _memop(_MEMOPS[0], stream.cuda_stream, address, value)
+
+
+def stream_write(address: int, value: int, stream=None):
+    """The stream writes ``value`` to the 32-bit word at ``address`` once
+    its earlier work is done, behind a memory barrier
+    (CU_STREAM_WRITE_VALUE_DEFAULT)."""
+    stream = stream or torch.cuda.current_stream()
+    _memop(_MEMOPS[1], stream.cuda_stream, address, value)
+
+
+def probe_stream_memops(device: torch.device):
+    """Write and wait on a scratch word once, so that a card or driver
+    that refuses stream memory operations raises before any work of the
+    overlap schedule is enqueued."""
+    word = torch.zeros(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream_write(word.data_ptr(), 1)
+        stream_wait(word.data_ptr(), 1)
+        torch.cuda.current_stream(device).synchronize()
+    if int(word.item()) != 1:
+        raise RuntimeError("stream memory operations did not write their "
+                           "word on this card")
+
+
+class LayerDone:
+    """Per-layer completion counters of the chained gathers on one device.
+    Every block of a launch adds one to ``done[l]`` once it has filed its
+    slice of layer l; the counters are never reset, and the host keeps
+    their running total, so ``wait(l)`` makes the current stream wait for
+    layer l of the latest launch exactly.  On the CPU it does nothing:
+    the plain rings are done when they return."""
+
+    def __init__(self, layers: int, device: torch.device):
+        self.device = torch.device(device)
+        self.words = (torch.zeros(layers, dtype=torch.int32, device=device)
+                      if self.device.type == "cuda" else None)
+        self.target = 0
+
+    def advance(self, blocks: int):
+        """A launch of ``blocks`` blocks (all ranks) is enqueued."""
+        self.target = (self.target + blocks) & 0xFFFFFFFF
+
+    def wait(self, layer: int, stream=None):
+        if self.words is not None:
+            stream_wait(self.words[layer].data_ptr(), self.target, stream)
+
+
+class LayerReady:
+    """Per-layer ready flags of the chained scatters on one device:
+    ``arm()`` starts a round with a value above the last round's (cyclic,
+    so the words are never reset); the compute stream's ``set(l)`` writes
+    that value once layer l's contributions are in place, and the blocks
+    of the round's scatter launch wait for it before layer l's first hop.
+    On the CPU it does nothing."""
+
+    def __init__(self, layers: int, device: torch.device):
+        self.device = torch.device(device)
+        self.words = (torch.zeros(layers, dtype=torch.int32, device=device)
+                      if self.device.type == "cuda" else None)
+        self.value = 0
+
+    def arm(self) -> int:
+        self.value = (self.value + 1) & 0xFFFFFFFF
+        return self.value
+
+    def set(self, layer: int, stream=None):
+        if self.words is not None:
+            stream_write(self.words[layer].data_ptr(), self.value, stream)

@@ -13,6 +13,15 @@ the natural ring), as ``repro_torch.core.odc.ring_order`` gives it.
 the shards lie on a CUDA device, and runs the plain ring
 (``odc_gather_plain``) when they lie on the CPU; there is no other route.
 ``launches`` counts kernel launches.
+
+``odc_gather_layers`` is the counterpart of
+``repro.kernels.odc_gather.odc_gather_layers_pallas``
+(``repro.kernels.ops.odc_gather_layers``): rank r's stacked (L, c, ...)
+shard -> its (L, n*c, ...) output, rank s's rows of layer l at
+``[l, s*c:(s+1)*c]``, the L rings chained through one launch of
+``repro_odc_gather_layers`` on a CUDA device; its plain version
+(``odc_gather_layers_plain``) is the plain ring layer by layer.
+``layers_launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -24,9 +33,12 @@ from repro_torch.core.odc import ring_gather as odc_gather_plain
 from repro_torch.kernels import _build, _ring
 
 launches = 0
+layers_launches = 0
 _STATE = _ring.RingState()
+_LAYERS_STATE = _ring.RingState()
 
-__all__ = ["odc_gather", "odc_gather_plain", "launches"]
+__all__ = ["odc_gather", "odc_gather_plain", "launches",
+           "odc_gather_layers", "odc_gather_layers_plain", "layers_launches"]
 
 
 def odc_gather(shards: Sequence[torch.Tensor],
@@ -56,4 +68,68 @@ def odc_gather(shards: Sequence[torch.Tensor],
                  order, x.numel(), x.element_size(), blocks_per_rank, cap,
                  _STATE, device)
     launches += 1
+    return outs
+
+
+def odc_gather_layers_plain(shards: Sequence[torch.Tensor],
+                            order: Optional[Sequence[int]] = None
+                            ) -> List[torch.Tensor]:
+    """The plain ring of every layer of stacked (L, c, ...) shards, layer
+    by layer (the JAX oracle of the chained kernel)."""
+    per = [odc_gather_plain([s[l] for s in shards], order)
+           for l in range(shards[0].shape[0])]
+    return [torch.stack([p[r] for p in per]) for r in range(len(shards))]
+
+
+def odc_gather_layers(shards: Sequence[torch.Tensor],
+                      order: Optional[Sequence[int]] = None, *,
+                      out: Optional[Sequence[torch.Tensor]] = None,
+                      done: Optional[_ring.LayerDone] = None,
+                      blocks_per_rank: Optional[int] = None
+                      ) -> List[torch.Tensor]:
+    """Every rank's (L, n*c, ...) gathered layers from every rank's stacked
+    (L, c, ...) shard: one launch of the chained CUDA kernel for CUDA
+    tensors, the plain ring per layer for CPU tensors.
+
+    ``out``: the ranks' output tensors to fill (else new ones).
+    ``done``: per-layer completion counters; ``done.wait(l)`` then makes a
+    stream wait for layer l of this launch (on the CPU it does nothing).
+    ``blocks_per_rank`` overrides the grid (default: at most
+    1/CHAIN_SHARE of the card); a grid that cannot be resident raises."""
+    global layers_launches
+    x = shards[0]
+    if x.dim() < 2:
+        raise ValueError(f"odc_gather_layers: shards must be stacked "
+                         f"(L, c, ...), got {tuple(x.shape)}")
+    n, L = len(shards), x.shape[0]
+    shape = (L, n * x.shape[1]) + tuple(x.shape[2:])
+    if out is not None:
+        _ring.check_out(out, x, shape, "odc_gather_layers")
+    if x.device.type == "cpu":
+        full = odc_gather_layers_plain(shards, order)
+        if out is None:
+            return full
+        for o, f in zip(out, full):
+            o.copy_(f)
+        return list(out)
+    device = _ring.check(shards, "odc_gather_layers")
+    c = x[0].numel()
+    lib = _build.library("odc_gather")
+    with torch.cuda.device(device):
+        cap = _ring.capacity(lib, "repro_odc_gather_layers_capacity")
+    if blocks_per_rank is None:
+        blocks_per_rank = _ring.chain_blocks_per_rank(
+            c * x.element_size(), n, cap)
+    outs = list(out) if out is not None else [
+        torch.empty(shape, dtype=x.dtype, device=device) for _ in range(n)]
+    stages = [torch.empty(2 * c, dtype=x.dtype, device=device)
+              for _ in range(n)]
+    done_ptr = done.words.data_ptr() if done is not None else None
+    _ring.launch(lib.repro_odc_gather_layers, "odc_gather_layers", shards,
+                 outs, stages, order, c, x.element_size(), blocks_per_rank,
+                 cap, _LAYERS_STATE, device, extra=(L, done_ptr),
+                 hops=L * (n - 1))
+    if done is not None:
+        done.advance(n * blocks_per_rank)
+    layers_launches += 1
     return outs

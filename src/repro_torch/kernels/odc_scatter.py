@@ -14,6 +14,16 @@ ring).
 ranks when the inputs lie on a CUDA device, and runs the plain ring
 (``odc_scatter_accumulate_plain``) when they lie on the CPU; there is no
 other route.  ``launches`` counts kernel launches.
+
+``odc_scatter_accumulate_layers`` is the counterpart of
+``repro.kernels.odc_scatter.odc_scatter_accumulate_layers_pallas``
+(``repro.kernels.ops.odc_scatter_accumulate_layers``): rank r's stacked
+(L, n*c, ...) contributions -> its (L, c, ...) sums, each layer summed in
+the reference's hop order, the L rings chained through one launch of
+``repro_odc_scatter_layers`` on a CUDA device; its plain version
+(``odc_scatter_accumulate_layers_plain``) is the plain ring layer by
+layer, bitwise equal to the kernel.  ``layers_launches`` counts its
+launches.
 """
 from __future__ import annotations
 
@@ -26,10 +36,13 @@ from repro_torch.core.odc import \
 from repro_torch.kernels import _build, _ring
 
 launches = 0
+layers_launches = 0
 _STATE = _ring.RingState()
+_LAYERS_STATE = _ring.RingState()
 
 __all__ = ["odc_scatter_accumulate", "odc_scatter_accumulate_plain",
-           "launches"]
+           "launches", "odc_scatter_accumulate_layers",
+           "odc_scatter_accumulate_layers_plain", "layers_launches"]
 
 
 def odc_scatter_accumulate(ys: Sequence[torch.Tensor],
@@ -64,4 +77,87 @@ def odc_scatter_accumulate(ys: Sequence[torch.Tensor],
                  stages, order, c, code, blocks_per_rank, cap, _STATE,
                  device)
     launches += 1
+    return outs
+
+
+def odc_scatter_accumulate_layers_plain(ys: Sequence[torch.Tensor],
+                                        order: Optional[Sequence[int]] = None,
+                                        *, reverse: bool = False
+                                        ) -> List[torch.Tensor]:
+    """The plain ring of every layer of stacked (L, n*c, ...)
+    contributions, layer by layer (from L - 1 down with ``reverse``, the
+    order a backward pass produces them; each layer's sum is the same)."""
+    L = ys[0].shape[0]
+    per = {}
+    for l in (reversed(range(L)) if reverse else range(L)):
+        per[l] = odc_scatter_accumulate_plain([y[l] for y in ys], order)
+    return [torch.stack([per[l][r] for l in range(L)])
+            for r in range(len(ys))]
+
+
+def odc_scatter_accumulate_layers(ys: Sequence[torch.Tensor],
+                                  order: Optional[Sequence[int]] = None, *,
+                                  reverse: bool = False,
+                                  out: Optional[Sequence[torch.Tensor]] = None,
+                                  ready: Optional[_ring.LayerReady] = None,
+                                  blocks_per_rank: Optional[int] = None
+                                  ) -> List[torch.Tensor]:
+    """Every rank's (L, c, ...) owned sums from every rank's stacked
+    (L, n*c, ...) contributions: one launch of the chained CUDA kernel for
+    CUDA tensors, the plain ring per layer for CPU tensors.
+
+    ``reverse``: the rings run from layer L - 1 down to 0.
+    ``out``: the sums are added into these tensors (``out += sum``, in
+    their type) instead of returned in new ones.
+    ``ready``: the kernel waits, before layer l, until ``ready.set(l)``
+    has run on the compute stream with the value of the latest
+    ``ready.arm()``; on the CPU it is not used.  Every
+    ``set`` must be enqueued before this launch, or must be enqueued by
+    host code that cannot block on the device (no first launch of a
+    kernel: CUDA's lazy module loading may synchronise the context, which
+    would wait for this kernel); a layer never set traps after 30 s.
+    ``blocks_per_rank`` overrides the grid (default: at most
+    1/CHAIN_SHARE of the card); a grid that cannot be resident raises."""
+    global layers_launches
+    y = ys[0]
+    n = len(ys)
+    if y.dim() < 2 or y.shape[1] % n:
+        raise ValueError(f"odc_scatter_accumulate_layers: contributions "
+                         f"must be stacked (L, n*c, ...) with n = {n}, got "
+                         f"{tuple(y.shape)}")
+    L = y.shape[0]
+    shape = (L, y.shape[1] // n) + tuple(y.shape[2:])
+    if out is not None:
+        _ring.check_out(out, y, shape, "odc_scatter_accumulate_layers")
+    if y.device.type == "cpu":
+        sums = odc_scatter_accumulate_layers_plain(ys, order,
+                                                   reverse=reverse)
+        if out is None:
+            return sums
+        for o, s in zip(out, sums):
+            o.add_(s)
+        return list(out)
+    device = _ring.check(ys, "odc_scatter_accumulate_layers")
+    c = y[0].numel() // n
+    code = _ring.DTYPE_CODES[y.dtype]
+    lib = _build.library("odc_scatter")
+    with torch.cuda.device(device):
+        cap = _ring.capacity(lib, "repro_odc_scatter_layers_capacity", code)
+    if blocks_per_rank is None:
+        blocks_per_rank = _ring.chain_blocks_per_rank(
+            c * y.element_size(), n, cap)
+    outs = list(out) if out is not None else [
+        torch.empty(shape, dtype=y.dtype, device=device) for _ in range(n)]
+    stages = [torch.empty(2 * c, dtype=y.dtype, device=device)
+              for _ in range(n)]
+    ready_ptr, want = None, 0
+    if ready is not None:
+        ready_ptr, want = ready.words.data_ptr(), ready.value
+    _ring.launch(lib.repro_odc_scatter_layers,
+                 "odc_scatter_accumulate_layers", ys, outs, stages, order, c,
+                 code, blocks_per_rank, cap, _LAYERS_STATE, device,
+                 extra=(L, int(reverse), int(out is not None), ready_ptr,
+                        want),
+                 hops=L * (n - 1))
+    layers_launches += 1
     return outs

@@ -3,10 +3,14 @@
 Synthetic length-realistic data -> a load-balancing strategy (LocalSort /
 LB-Micro / LB-Mini) -> sequence packing -> the FSDP train step over the
 ranks of a ``RankGroup`` (``--comm odc --schedule minibatch``, the
-paper's ODC, or ``--comm collective --schedule layer``, the FSDP
-baseline) -> sharded AdamW.  One process holds every rank; on one card
-every rank lies on it, so ``--data-axis 2`` trains with two ranks on one
-H100 and each ODC ring is one launch of a hand-written CUDA kernel.
+paper's ODC; ``--comm collective --schedule layer``, the FSDP baseline;
+``--comm odc-overlap``, or ``--schedule overlap``, the prefetch schedule)
+-> sharded AdamW -> checkpoints (``--ckpt-dir``, ``--save-every``,
+``--resume``).  One process holds every rank; on one card every rank lies
+on it, so ``--data-axis 2`` trains with two ranks on one H100 and each
+ODC ring is one launch of a hand-written CUDA kernel (under the overlap
+schedule, one chained launch per microbatch round carries the whole
+trunk).
 
 Weights are random, drawn from ``--seed`` by a ``torch.Generator`` on the
 target device, in float32; float32 products run in full f32 (TF32 off).
@@ -17,6 +21,10 @@ Examples:
       --data-axis 2 --steps 3 --max-tokens 4096 --max-len 4096
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen-1.5b \\
       --reduced --device cpu --data-axis 2 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen-1.5b \\
+      --reduced --device cpu --data-axis 2 --comm odc-overlap --steps 2 \\
+      --ckpt-dir /tmp/ckpt --save-every 2
+  ... --steps 3 --ckpt-dir /tmp/ckpt --resume   # continues at step 2
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ import time
 import torch
 
 from repro_torch.balance.cost import CostModel, make_straggler_profile
+from repro_torch.checkpoint import latest_step, load_checkpoint, \
+    save_checkpoint
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import backend as backends
 from repro_torch.core.ranks import RankGroup
@@ -38,10 +48,22 @@ from repro_torch.obs import log as obs_log
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.schedules import cosine_schedule, linear_warmup
 
-KERNELS = {"flash_attention": flash_attention, "odc_gather": odc_gather,
-           "odc_scatter_accumulate": odc_scatter}
-_NOT_PORTED_FLAGS = ("ckpt_dir", "resume", "save_every", "trace", "metrics",
-                     "config", "pipe_interleave")
+# kernel name -> (module, its launch counter)
+KERNELS = {"flash_attention": (flash_attention, "launches"),
+           "odc_gather": (odc_gather, "launches"),
+           "odc_scatter_accumulate": (odc_scatter, "launches"),
+           "odc_gather_layers": (odc_gather, "layers_launches"),
+           "odc_scatter_accumulate_layers": (odc_scatter, "layers_launches")}
+_NOT_PORTED_FLAGS = ("trace", "metrics", "config", "pipe_interleave")
+
+
+def reset_launches():
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
 
 
 def parse_args(argv=None):
@@ -57,15 +79,19 @@ def parse_args(argv=None):
     ap.add_argument("--schedule", default="minibatch",
                     choices=backends.SCHEDULES,
                     help="where gathers/scatters are placed: 'layer' (per "
-                         "layer per microbatch, FSDP baseline) or "
-                         "'minibatch' (once per minibatch, ODC); 'overlap' "
-                         "and '1f1b' are not yet ported")
+                         "layer per microbatch, FSDP baseline), "
+                         "'minibatch' (once per minibatch, ODC) or "
+                         "'overlap' (per microbatch, layer l+1 issued under "
+                         "layer l; with a ring backend the chained ring "
+                         "kernels); '1f1b' is not yet ported")
     ap.add_argument("--comm", default="odc",
                     choices=backends.backend_names() + backends.NOT_PORTED,
                     help="how each gather/scatter moves bytes: 'collective' "
-                         "(fused all-gather / reduce-scatter) or 'odc' (p2p "
-                         "ring, the hand-written CUDA kernels on the card); "
-                         "the other JAX backends are not yet ported")
+                         "(fused all-gather / reduce-scatter), 'odc' (p2p "
+                         "ring, the hand-written CUDA kernels on the card) "
+                         "or 'odc-overlap' (alias 'overlap': odc with the "
+                         "overlap schedule implied); the other JAX backends "
+                         "are not yet ported")
     ap.add_argument("--device-profile", default="none",
                     choices=("none", "homogeneous", "one_slow", "bimodal",
                              "uniform"),
@@ -92,11 +118,17 @@ def parse_args(argv=None):
                     help="1 only (tensor parallelism is not yet ported)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    for flag in ("--ckpt-dir", "--trace", "--metrics", "--config"):
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--save-every", "--ckpt-every", type=int, default=0,
+                    dest="save_every",
+                    help="checkpoint (params + optimizer) to --ckpt-dir "
+                         "every N steps (alias: --ckpt-every)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the latest checkpoint in --ckpt-dir "
+                         "(bit-identical to an uninterrupted run: the "
+                         "loader replays the skipped steps' data stream)")
+    for flag in ("--trace", "--metrics", "--config"):
         ap.add_argument(flag, default="", help="not yet ported")
-    ap.add_argument("--save-every", type=int, default=0,
-                    help="not yet ported")
-    ap.add_argument("--resume", action="store_true", help="not yet ported")
     ap.add_argument("--pipe-interleave", action="store_true",
                     help="not yet ported")
     for flag in ("--nodes", "--pipe-stages", "--cp"):
@@ -113,7 +145,7 @@ def parse_args(argv=None):
     if args.comm in backends.NOT_PORTED:
         ap.error(f"--comm {args.comm} is not yet ported to repro_torch "
                  f"(ROADMAP §0)")
-    if args.schedule not in ("layer", "minibatch"):
+    if args.schedule == "1f1b":
         ap.error(f"--schedule {args.schedule} is not yet ported to "
                  f"repro_torch (ROADMAP §0)")
     return args
@@ -124,18 +156,17 @@ def _sync(ranks):
         torch.cuda.synchronize(ranks.devices[0])
 
 
-def run(args) -> dict:
-    """Train as the flags say; returns the run's summary."""
+def run(args, *, return_params: bool = False) -> dict:
+    """Train as the flags say; returns the run's summary (with the final
+    parameters, unsharded on the CPU, under "params" if asked)."""
     out = obs_log.from_args("train", args)
+    if args.resume and not args.ckpt_dir:
+        raise SystemExit("--resume needs --ckpt-dir")
     ranks = RankGroup.make(args.data_axis, args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     world = ranks.n
-    out.info(f"{cfg.name} ({cfg.family}) on {world} ranks "
-             f"{[str(d) for d in ranks.devices]} strategy={args.strategy} "
-             f"schedule={args.schedule} comm={args.comm}")
-
     profile = None
     if args.device_profile != "none":
         profile = make_straggler_profile(
@@ -153,11 +184,26 @@ def run(args) -> dict:
     trainer = Trainer(cfg, ranks, comm=args.comm, schedule=args.schedule,
                       opt_cfg=AdamWConfig(lr=args.lr),
                       lr_schedule=lr_schedule, device_profile=profile)
+    comm, schedule = trainer.backend.name, trainer.schedule
+    out.info(f"{cfg.name} ({cfg.family}) on {world} ranks "
+             f"{[str(d) for d in ranks.devices]} strategy={args.strategy} "
+             f"schedule={schedule} comm={comm}")
 
-    gen = torch.Generator(device=ranks.devices[0]).manual_seed(args.seed)
-    params = T.init_params(cfg, gen)
-    shards, opt = trainer.init_state(params)
-    del params
+    start_step = 0
+    last = latest_step(args.ckpt_dir) if args.resume else None
+    if last is not None:
+        shards, opt = trainer.restore(load_checkpoint(
+            args.ckpt_dir, last, trainer.state_like()))
+        start_step = last
+        out.info(f"resumed from {args.ckpt_dir} at step {last}")
+    else:
+        if args.resume:
+            out.info(f"--resume: no checkpoint in {args.ckpt_dir!r}, "
+                     f"starting fresh")
+        gen = torch.Generator(device=ranks.devices[0]).manual_seed(args.seed)
+        params = T.init_params(cfg, gen)
+        shards, opt = trainer.init_state(params)
+        del params
 
     cm = CostModel(attention_free=cfg.is_attention_free,
                    window=cfg.sliding_window)
@@ -168,14 +214,14 @@ def run(args) -> dict:
         max_len=args.max_len, cost_model=cm, seed=args.seed,
         device_profile=profile)
 
-    for mod in KERNELS.values():
-        mod.launches = 0
+    reset_launches()
     if ranks.devices[0].type == "cuda":
         torch.cuda.reset_peak_memory_stats(ranks.devices[0])
     t_start = time.time()
     samples_done = tokens_done = 0
-    losses, step_s, steps = [], [], []
-    for i, step_data in enumerate(loader.steps(args.steps)):
+    losses, step_s, steps, saved = [], [], [], []
+    for i, step_data in enumerate(loader.steps(args.steps, skip=start_step),
+                                  start=start_step):
         plan = step_data["plan"]
         batch = build_minibatch(plan, step_data["sample_tokens"],
                                 args.max_tokens)
@@ -196,8 +242,13 @@ def run(args) -> dict:
         out.step(i, f"step {i:4d} loss={loss:.4f} tokens={tokens:.0f} "
                     f"M={plan.max_microbatches} dt={dt:.2f}s "
                     f"tok/s={tokens / max(dt, 1e-9):.0f}")
+        if args.ckpt_dir and args.save_every \
+                and (i + 1) % args.save_every == 0:
+            save_checkpoint(args.ckpt_dir, i + 1,
+                            trainer.state_tree(shards, opt))
+            saved.append(i + 1)
     dt = time.time() - t_start
-    launches = {name: mod.launches for name, mod in KERNELS.items()}
+    launches = read_launches()
     peak = (torch.cuda.max_memory_allocated(ranks.devices[0])
             if ranks.devices[0].type == "cuda" else 0)
     if not losses:
@@ -210,12 +261,17 @@ def run(args) -> dict:
         out.always(f"kernel launches: {launches}"
                    + (f"; peak device memory {peak / 2**30:.2f} GiB"
                       if peak else ""))
-    return {"losses": losses, "step_s": step_s, "steps": steps,
-            "launches": launches, "world": world,
-            "num_layers": cfg.num_layers, "dims": trainer.dims,
-            "tokens": tokens_done, "seconds": dt,
-            "tok_s": tokens_done / dt if dt > 0 else 0.0,
-            "peak_bytes": peak}
+    summary = {"losses": losses, "step_s": step_s, "steps": steps,
+               "launches": launches, "world": world,
+               "num_layers": cfg.num_layers, "dims": trainer.dims,
+               "comm": comm, "schedule": schedule,
+               "start_step": start_step, "saved": saved,
+               "tokens": tokens_done, "seconds": dt,
+               "tok_s": tokens_done / dt if dt > 0 else 0.0,
+               "peak_bytes": peak}
+    if return_params:
+        summary["params"] = trainer.unshard(shards)
+    return summary
 
 
 def main(argv=None):

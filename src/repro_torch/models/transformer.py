@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.odc import prefetch_scan
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -168,7 +169,7 @@ def _identity(trees):
 
 
 def forward_ranks(cfg: ModelConfig, params_list, batches, *,
-                  remat: bool = False, pxform=None):
+                  remat: bool = False, pxform=None, prefetch=None):
     """Final hidden states of several ranks' batches, run in lockstep layer
     by layer (no caches): the training forward, ``_forward_dense`` of the
     JAX package for each rank.
@@ -179,27 +180,40 @@ def forward_ranks(cfg: ModelConfig, params_list, batches, *,
     per-layer gather is one call for all ranks.  It sees the top-level
     leaves once, then each layer's slice inside the layer loop.
     ``remat=True`` recomputes each layer, hook included, in the backward
-    pass (``jax.checkpoint`` around the scan body)."""
+    pass (``jax.checkpoint`` around the scan body).
+
+    ``prefetch`` (schedule='overlap', the ``prefetch`` branch of the JAX
+    ``_forward_dense``): the layer loop is ``core.odc.prefetch_scan``, and
+    the hook materializes each layer's trees one iteration ahead in place
+    of ``pxform``, which then sees the top-level leaves only."""
     _require_dense(cfg)
     px = pxform or _identity
     tops = px([{k: v for k, v in p.items() if k != "layers"}
                for p in params_list])
     xs = [_embed(cfg, t, b) for t, b in zip(tops, batches)]
 
-    def body(i, xs, layer_trees):
-        full = px(layer_trees)
+    def blocks(i, xs, full):
         return [_apply_dense_block(
             cfg, lp, x, window=layer_window(cfg, i),
             positions=b.get("positions"), segment_ids=b.get("segment_ids"),
             cache=None, cache_index=None)[0]
             for lp, x, b in zip(full, xs, batches)]
 
+    def layer_trees(i):
+        return [_layer(p["layers"], i) for p in params_list]
+
+    if prefetch is not None:
+        return tops, prefetch_scan(blocks, xs, layer_trees, cfg.num_layers,
+                                   prefetch, remat=remat)
+
+    def body(i, xs, trees):
+        return blocks(i, xs, px(trees))
+
     for i in range(cfg.num_layers):
-        layer_trees = [_layer(p["layers"], i) for p in params_list]
         if remat:
-            xs = checkpoint(body, i, xs, layer_trees, use_reentrant=False)
+            xs = checkpoint(body, i, xs, layer_trees(i), use_reentrant=False)
         else:
-            xs = body(i, xs, layer_trees)
+            xs = body(i, xs, layer_trees(i))
     return tops, xs
 
 
@@ -222,11 +236,12 @@ def _loss_from_hidden(cfg, top, x, batch, reduction):
 
 
 def loss_ranks(cfg: ModelConfig, params_list, batches, *,
-               remat: bool = False, pxform=None, reduction: str = "mean"):
+               remat: bool = False, pxform=None, prefetch=None,
+               reduction: str = "mean"):
     """``loss`` of several ranks' batches in one lockstep forward (see
     ``forward_ranks``); returns one (loss, metrics) per rank."""
     tops, xs = forward_ranks(cfg, params_list, batches, remat=remat,
-                             pxform=pxform)
+                             pxform=pxform, prefetch=prefetch)
     return [_loss_from_hidden(cfg, t, x, b, reduction)
             for t, x, b in zip(tops, xs, batches)]
 

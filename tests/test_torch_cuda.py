@@ -1,8 +1,9 @@
 """Card tests of the port: the CUDA flash-attention kernel against its
 plain version, its gradient, its launch counter and its input checks; the
-ODC ring kernels against the plain rings and their refusal of a grid that
-cannot be co-resident; a reduced serve run and a reduced train step on the
-card against the same run on the CPU.  Each test needs an NVIDIA GPU and
+ODC ring kernels and their chained-layer versions against the plain rings
+and their refusal of a grid that cannot be co-resident; a reduced serve
+run and a reduced train step (ODC x minibatch, collective x layer, ODC
+under the overlap schedule) on the card against the same run on the CPU.  Each test needs an NVIDIA GPU and
 skips without one.
 
 This file imports no jax, so it runs on a machine that has only PyTorch:
@@ -188,8 +189,61 @@ def test_ring_refuses_a_grid_that_cannot_be_resident(cuda):
     assert all(torch.equal(o, torch.ones(256, device=cuda)) for o in out)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,L", [(2, 3), (4, 28), (8, 28)])
+def test_chained_ring_kernels_match_plain_rings(cuda, dtype, n, L):
+    """Both chained kernels, the scatter also in backward layer order and
+    accumulating, bitwise against the plain rings; 28 layers on 4 and 8
+    ranks are 84 and 196 hops in one launch, above the single-leaf
+    kernels' tag stride of 64, and a second launch follows each first."""
+    from repro_torch.kernels import odc_gather as G
+    from repro_torch.kernels import odc_scatter as S
+
+    order = list(reversed(range(n)))
+    gen = torch.Generator(device=cuda).manual_seed(n + L)
+    for c in (1, 1003):
+        xs = [torch.randn(L, c, 3, generator=gen, device=cuda).to(dtype)
+              for _ in range(n)]
+        for o in (None, order):
+            before = G.layers_launches
+            out = G.odc_gather_layers(xs, o)
+            torch.cuda.synchronize()
+            assert G.layers_launches == before + 1
+            ref = G.odc_gather_layers_plain(xs, o)
+            assert all(torch.equal(a, b) for a, b in zip(out, ref))
+        ys = [torch.randn(L, n * c, 3, generator=gen, device=cuda).to(dtype)
+              for _ in range(n)]
+        for o in (None, order):
+            out = S.odc_scatter_accumulate_layers(ys, o)
+            torch.cuda.synchronize()
+            ref = S.odc_scatter_accumulate_layers_plain(ys, o)
+            assert all(torch.equal(a, b) for a, b in zip(out, ref))
+            acc = [torch.ones_like(r) for r in ref]
+            S.odc_scatter_accumulate_layers(ys, o, reverse=True, out=acc)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, 1 + b) for a, b in zip(acc, ref))
+
+
+def test_chained_rings_refuse_a_grid_that_cannot_be_resident(cuda):
+    from repro_torch.kernels import odc_gather as G
+    from repro_torch.kernels import odc_scatter as S
+
+    xs = [torch.ones(2, 64, device=cuda) for _ in range(2)]
+    ys = [torch.ones(2, 128, device=cuda) for _ in range(2)]
+    for fn, args in ((G.odc_gather_layers, xs),
+                     (S.odc_scatter_accumulate_layers, ys)):
+        before = (G.layers_launches, S.layers_launches)
+        with pytest.raises(RuntimeError, match="resident"):
+            fn(args, blocks_per_rank=1 << 20)
+        assert (G.layers_launches, S.layers_launches) == before
+    out = G.odc_gather_layers(xs)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, torch.ones(2, 128, device=cuda)) for o in out)
+
+
 @pytest.mark.parametrize("comm,schedule", [("odc", "minibatch"),
-                                           ("collective", "layer")])
+                                           ("collective", "layer"),
+                                           ("odc-overlap", "overlap")])
 def test_reduced_train_step_on_card_matches_cpu(cuda, comm, schedule):
     """Two reduced train steps with two ranks on the card (flash and ring
     kernels) against the same steps on the CPU (plain versions), same
@@ -203,6 +257,7 @@ def test_reduced_train_step_on_card_matches_cpu(cuda, comm, schedule):
     from repro_torch.kernels import odc_gather as G
     from repro_torch.models import transformer as T
 
+    launched = "layers_launches" if schedule == "overlap" else "launches"
     cfg = get_reduced("qwen-1.5b")
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     loader = SyntheticSFTLoader("longalign", vocab_size=cfg.vocab_size,
@@ -214,14 +269,14 @@ def test_reduced_train_step_on_card_matches_cpu(cuda, comm, schedule):
         tr = Trainer(cfg, RankGroup.make(2, dev), comm=comm,
                      schedule=schedule)
         shards, opt = tr.init_state(_to(params, dev))
-        before = G.launches
+        before = getattr(G, launched)
         losses[dev] = []
         for sd in steps:
             batch = build_minibatch(sd["plan"], sd["sample_tokens"], 128)
             counts = [len(a) for a in sd["plan"].assignments]
             shards, opt, m = tr.step(shards, opt, batch, counts)
             losses[dev].append(float(m["loss"]))
-        if dev == "cuda" and comm == "odc":
-            assert G.launches > before
+        if dev == "cuda" and comm != "collective":
+            assert getattr(G, launched) > before
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-5 * abs(b), (losses["cuda"], losses["cpu"])

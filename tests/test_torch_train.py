@@ -6,7 +6,7 @@ with every rank on the CPU).  JAX weights and AdamW state cross over
 through ``repro_torch.bridge``; the batches come from each package's own
 ``build_minibatch`` (held equal in ``tests/test_torch_data.py``).
 
-* Step-0 gradients of all four comm x schedule pairs against ``jax.grad``
+* Step-0 gradients of all six comm x schedule pairs against ``jax.grad``
   of the summed ``T.loss`` over every rank's microbatches divided by the
   global token count, leaf by leaf.  Tolerance: |diff| <= 1e-4 *
   max|ref| over the leaf: the gradient is a sum over tokens, microbatches
@@ -57,7 +57,8 @@ LOSS_RTOL = 1e-5
 LR = 1e-3
 MAX_TOKENS = 128
 PAIRS = [("collective", "layer"), ("odc", "minibatch"),
-         ("odc", "layer"), ("collective", "minibatch")]
+         ("odc", "layer"), ("collective", "minibatch"),
+         ("odc-overlap", "overlap"), ("collective", "overlap")]
 
 
 def _loader(cls, world):
@@ -256,9 +257,9 @@ def test_driver_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--trace", "t.json"], ["--metrics", "m.jsonl"], ["--ckpt-dir", "c"],
-    ["--resume"], ["--comm", "hier"], ["--comm", "odc-overlap"],
-    ["--schedule", "overlap"], ["--model-axis", "2"], ["--cp", "2"]])
+    ["--trace", "t.json"], ["--metrics", "m.jsonl"], ["--schedule", "1f1b"],
+    ["--comm", "pipe"], ["--comm", "hier"], ["--comm", "pipe-int8"],
+    ["--pipe-stages", "2"], ["--model-axis", "2"], ["--cp", "2"]])
 def test_driver_refuses_what_is_not_ported(flags, capsys):
     with pytest.raises(SystemExit):
         train_cli.parse_args(["--reduced", "--device", "cpu", *flags])
