@@ -1,12 +1,15 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the port's kernels,
 holds each one to its plain PyTorch version on the card (flash attention
-forward and gradient, the ODC ring gather and scatter-accumulate, their
-chained-layer versions and the per-layer flags between a chained ring and
-the compute stream), serves full-width qwen-1.5b through the serve entry
+forward and gradient, the state sweep of ring attention, the ODC ring
+gather and scatter-accumulate, their chained-layer versions and the
+per-layer flags between a chained ring and the compute stream), holds the
+cp ring's forward bitwise to the monolithic kernel and its gradient to
+the plain route, serves full-width qwen-1.5b through the serve entry
 point in both modes, trains full-width qwen-1.5b with two ranks on the
-card through the train entry point (ODC x minibatch, collective x layer
-and ODC under the overlap schedule), profiles a train step of the first
-and the last, saves and resumes a reduced overlap run, and times each
+card through the train entry point (ODC x minibatch, collective x layer,
+ODC under the overlap schedule, and context parallelism: data 1 x cp 2
+with lb_token plans), profiles a train step of the first, the third and
+the cp run, saves and resumes a reduced overlap run, and times each
 kernel against its bound and its library yardstick.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
@@ -82,6 +85,28 @@ TRAIN = dict(data_axis=2, steps=3, max_tokens=4096, max_len=4096,
 # the first config is the reference the others are held to
 TRAIN_CONFIGS = (("collective", "layer"), ("odc", "minibatch"),
                  ("odc-overlap", "overlap"))
+# The cp run: qwen-1.5b at its published widths and depth, fp32, data 1 x
+# cp 2 on the one card, LongAlign lengths up to 8192 planned by lb_token:
+# each rank's budget is 4096 tokens, a group row holds 8192.
+CP_TRAIN = dict(cp=2, steps=3, max_tokens=4096, max_len=8192,
+                minibatch_per_device=4)
+# cp step 0 against the same step with every attention run by the plain
+# route (allgather_attention under autograd): the loss and the gradient
+# norm, relative.  Both are sums over every token and parameter of values
+# that differ by f32 rounding in the attention (sum order), about 1e-7
+# relative; a wrong chunk, mask or slice moves them by far more.
+CP_PLAIN_RTOL = 1e-5
+# The ring's group gradient at the train shape against the plain route,
+# |diff| <= tol * (1 + |plain|): as GRAD_TOL, the same closed form against
+# autograd of the materialized softmax in f32; dk and dv are sums over up
+# to 6 heads x 8192 rows of terms that cancel (random cotangents), so
+# their rounding is about sqrt(49152) * 2**-24 of the terms' magnitude.
+# (1e-5 is too tight for that: the first run read 2.956e-5; the flat
+# flash gradient at 4096 rows reads 5.5e-5 under the same 1e-4.)
+CP_GRAD_TOL = GRAD_TOL
+# lengths of the samples packed into the cp checks' 8192-token row
+CP_ROW_LENS = (3000, 2500, 2000)
+
 # ring cases: ranks, shard elements, dtypes
 RING_NS = (2, 3, 4, 8)
 RING_SIZES = (1, 1000, 2 ** 20)
@@ -325,6 +350,212 @@ def phase_flash_grad() -> dict:
         del out, ref, kern, plain
     torch.cuda.empty_cache()
     return found
+
+
+# ---------------------------------------------------------------------------
+# phase 3b': the state sweep of ring attention, the cp ring's forward
+# against the monolithic kernel, and its group gradient
+# ---------------------------------------------------------------------------
+# name -> (B, S, kv chunk lengths, H, KH, hd, window): the first chunk
+# starts from a fresh carry, the later ones carry it; q is the last S
+# rows of a packed sequence of two segments and a padding tail
+STATE_CASES = {
+    "fresh, 1 chunk, 12/2 hd128": (2, 256, (256,), 12, 2, 128, 0),
+    "4 chunks, 12/2 hd128, window 96": (2, 256, (64,) * 4, 12, 2, 128, 96),
+    "3 ragged chunks, 4/4 hd64": (1, 77, (45, 45, 41), 4, 4, 64, 0),
+    "2 ragged chunks, 4/4 hd64, window 96": (2, 131, (70, 61), 4, 4, 64,
+                                             96),
+}
+
+
+def _packed_seq(B, T, dev="cuda"):
+    """Positions and segment ids of B packed rows of T tokens: two
+    segments and a padding tail at position -1e9 (no valid key)."""
+    pad, cut = T // 8, (T - T // 8) // 2
+    pos = torch.full((B, T), -(10 ** 9), dtype=torch.int32, device=dev)
+    seg = torch.full((B, T), -1, dtype=torch.int32, device=dev)
+    pos[:, :cut] = torch.arange(cut, device=dev, dtype=torch.int32)
+    pos[:, cut:T - pad] = torch.arange(T - pad - cut, device=dev,
+                                       dtype=torch.int32)
+    seg[:, :cut], seg[:, cut:T - pad] = 0, 1
+    return pos, seg
+
+
+def phase_state_kernel():
+    """The state sweep kernel against its plain version, chunk by chunk:
+    the carry (f32) on rows with a valid key so far, and the finished
+    output."""
+    from repro_torch.kernels import flash_attention as fa
+
+    bad = []
+    for i, (name, (B, S, chunks, H, KH, hd, window)) in enumerate(
+            STATE_CASES.items()):
+        T = sum(chunks)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(20 + i)
+            q = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dtype)
+            k, v = (torch.randn(B, T, KH, hd, generator=g,
+                                device="cuda").to(dtype) for _ in range(2))
+            pos, seg = _packed_seq(B, T)
+            kw = dict(causal=True, window=window, q_positions=pos[:, T - S:],
+                      q_segment_ids=seg[:, T - S:])
+            carry = ref = None
+            worst, ok, t0 = 0.0, True, 0
+            for c in chunks:
+                sl = slice(t0, t0 + c)
+                t0 += c
+                ck = dict(kw, kv_positions=pos[:, sl],
+                          kv_segment_ids=seg[:, sl])
+                carry = fa.flash_attention_state(q, k[:, sl], v[:, sl],
+                                                 carry, **ck)
+                torch.cuda.synchronize()
+                ref = fa.flash_attention_state_plain(q, k[:, sl], v[:, sl],
+                                                     ref, **ck)
+                rows = fa.attn_mask(kw["q_positions"], pos[:, :t0],
+                                    kw["q_segment_ids"], seg[:, :t0],
+                                    causal=True, window=window).any(-1)
+                for a, b in zip(carry, ref):
+                    a, b = a[rows], b[rows]
+                    err = (a - b).abs()
+                    ok &= bool(torch.isfinite(a).all()) and bool(
+                        (err <= TOL[torch.float32] * (1 + b.abs())).all())
+                    worst = max(worst, float(err.max()) if err.numel() else 0)
+            out = fa.finish_attention(carry, dtype).float()[rows]
+            want = fa.finish_attention(ref, dtype).float()[rows]
+            err = (out - want).abs()
+            ok &= bool((err <= TOL[dtype] * (1 + want.abs())).all())
+            tag = str(dtype).replace("torch.", "")
+            log(f"flash_attention_state vs plain [{tag:8s}] {name:38s} q "
+                f"{tuple(q.shape)} chunks {chunks}: carry max|diff| "
+                f"{worst:.3e} (tol {TOL[torch.float32]:g}), output "
+                f"{float(err.max()):.3e} over {int(rows.sum())} rows (tol "
+                f"{TOL[dtype]:g}) {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(f"{name} {tag}")
+    if bad:
+        fail(f"flash_attention_state disagrees with its plain version: {bad}")
+
+
+def _cp_row(cp_deg, T, H=12, KH=2, hd=128, dtype=torch.float32, seed=0):
+    """One packed train row of T tokens (CP_ROW_LENS scaled to T, then
+    padding, laid out as ``data.packing.pack_sequences`` lays it out:
+    positions restart per sample, padding is segment -1 at position 0),
+    random q, k, v of qwen's heads, and the interleave of cp_deg ranks."""
+    from repro_torch.core import cp
+    from repro_torch.data.packing import pack_sequences
+    import numpy as np
+
+    scale = T / 8192
+    lens = [max(1, int(n * scale)) for n in CP_ROW_LENS]
+    row = pack_sequences([np.zeros(n, np.int32) for n in lens], T)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(1, T, H, hd, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(1, T, KH, hd, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    pos = torch.from_numpy(row["positions"])[None].cuda()
+    seg = torch.from_numpy(row["segment_ids"])[None].cuda()
+    perm = torch.from_numpy(cp.interleave_indices(T, cp_deg)).cuda()
+    return q, k, v, pos, seg, perm
+
+
+def phase_cp_bitwise() -> dict:
+    """The cp ring's forward (the ring gather kernel, then the state
+    kernel swept over the 2*cp chunks in ascending global order, or cp
+    without interleave; every chunk a multiple of the kernel's kv tile)
+    against the monolithic kernel on the gathered sequence: equal bit for
+    bit on every row with a valid key."""
+    from repro_torch.core import cp
+    from repro_torch.kernels import flash_attention as fa
+
+    cases = 0
+    for n in (2, 4):
+        for interleave in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                T = 2 * n * 256
+                q, k, v, pos, seg, perm = _cp_row(n, T, dtype=dtype, seed=n)
+                if not interleave:
+                    perm = torch.arange(T, device="cuda")
+                split = lambda x: list(x.index_select(1, perm).chunk(n, 1))
+                with torch.no_grad():
+                    outs = cp.ring_attention(
+                        split(q), split(k), split(v), split(pos), split(seg),
+                        interleave=interleave)
+                    ref = fa.flash_attention(
+                        q, k, v, q_positions=pos, kv_positions=pos,
+                        q_segment_ids=seg, kv_segment_ids=seg)
+                out = torch.empty_like(q)
+                out[:, perm] = torch.cat(outs, 1)
+                torch.cuda.synchronize()
+                rows = fa.attn_mask(pos, pos, seg, seg, causal=True,
+                                    window=0).any(-1)
+                equal = torch.equal(out[rows], ref[rows])
+                tag = (f"cp {n}, interleave {interleave}, "
+                       f"{str(dtype).replace('torch.', '')}, {T} tokens")
+                if not equal:
+                    err = float((out[rows].float() - ref[rows].float())
+                                .abs().max())
+                    fail(f"cp ring forward ({tag}) is not bitwise the "
+                         f"monolithic kernel: max|diff| {err:.3e}")
+                cases += 1
+    log(f"cp ring forward bitwise equal to the monolithic kernel on the "
+        f"gathered sequence in {cases} cases (cp 2 and 4, interleave on "
+        f"and off, float32 and bfloat16, chunks of 256 or 512 keys)")
+    return {"cases": cases}
+
+
+def phase_cp_grad() -> dict:
+    """The ring's group Function at the train shape (one 8192-token row
+    over cp 2, qwen's 12/2 heads, hd 128): output and dq, dk, dv against
+    the plain route, ``allgather_attention`` under autograd."""
+    from repro_torch.core import cp
+    from repro_torch.kernels import flash_attention as fa
+
+    n, T = CP_TRAIN["cp"], 2 * CP_TRAIN["max_tokens"]
+    q, k, v, pos, seg, perm = _cp_row(n, T, seed=9)
+    split = lambda x: list(x.index_select(1, perm).chunk(n, 1))
+    gout = split(torch.randn(q.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(10)))
+    found = {}
+    for name, fn in (("ring", cp.ring_attention),
+                     ("plain", cp.allgather_attention)):
+        leaves = [[t.clone().requires_grad_(True) for t in split(x)]
+                  for x in (q, k, v)]
+        before = (fa.state_launches, fa.launches)
+        outs = fn(*leaves, split(pos), split(seg))
+        torch.autograd.backward(outs, gout)
+        torch.cuda.synchronize()
+        launched = (fa.state_launches - before[0], fa.launches - before[1])
+        found[name] = ([o.detach() for o in outs],
+                       [t.grad for ts in leaves for t in ts], launched)
+        del outs, leaves
+        torch.cuda.empty_cache()
+    (outs, grads, launched), (pouts, pgrads, plaunched) = (found["ring"],
+                                                          found["plain"])
+    if launched != (2 * n * n, 0) or plaunched != (0, 0):
+        fail(f"cp gradient: the ring launched {launched} (state, "
+             f"monolithic) kernels, want ({2 * n * n}, 0); the plain route "
+             f"{plaunched}, want (0, 0)")
+    fwd = max(float((a - b).abs().max()) for a, b in zip(outs, pouts))
+    errs = []
+    for a, b in zip(grads, pgrads):
+        err = (a - b).abs()
+        errs.append(float(err.max()))
+        if not (bool(torch.isfinite(a).all())
+                and bool((err <= CP_GRAD_TOL * (1 + b.abs())).all())):
+            fail(f"cp gradient: the ring and the plain route disagree "
+                 f"(max|diff| {float(err.max()):.3e})")
+    if not all(bool(((a - b).abs() <= TOL[torch.float32]
+                     * (1 + b.abs())).all()) for a, b in zip(outs, pouts)):
+        fail(f"cp forward: the ring and the plain route disagree "
+             f"(max|diff| {fwd:.3e})")
+    dq, dk, dv = (max(errs[i * n:(i + 1) * n]) for i in range(3))
+    log(f"cp group gradient, {T} tokens over cp {n}, 12/2 heads, hd 128: "
+        f"ring vs plain route max|diff| out {fwd:.3e} (tol "
+        f"{TOL[torch.float32]:g}), dq {dq:.3e} dk {dk:.3e} dv {dv:.3e} "
+        f"(tol {CP_GRAD_TOL:g}) ok")
+    del found, grads, pgrads
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "dq": dq, "dk": dk, "dv": dv}
 
 
 # ---------------------------------------------------------------------------
@@ -704,17 +935,71 @@ def phase_serve() -> dict:
     return results
 
 
-def _device_ms(prof, name, per, classes):
+def _launch_labels(events, labels):
+    """kernel correlation id -> the label (a ``record_function`` span
+    named in ``labels``) under which it was launched; how many runtime
+    calls their own timestamps would have placed otherwise; and how many
+    runtime calls were made under each label.
+
+    A runtime call (a ``cuda_runtime`` event) names the host op that
+    made it by its "External id".  That op's start and the label spans are taken
+    on the profiler's host clock, so the op is placed in a span by its
+    start.  The launch's own timestamp is CUPTI's, converted from another
+    clock, and can fall outside a short span (the cause of a copy label
+    that got no kernel in an earlier run)."""
+    import bisect
+
+    ops, spans = {}, {}
+    for e in events:
+        if e.get("cat") not in ("cpu_op", "user_annotation"):
+            continue
+        ext = e.get("args", {}).get("External id")
+        if ext is not None:
+            ops[ext] = e
+        if e["cat"] == "user_annotation" and e["name"] in labels:
+            spans.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e["dur"], e["name"]))
+    starts = {}
+    for tid, sp in spans.items():
+        sp.sort()
+        starts[tid] = [x[0] for x in sp]
+
+    def place(tid, ts):
+        i = bisect.bisect_right(starts.get(tid, []), ts) - 1
+        return spans[tid][i][2] if i >= 0 and ts <= spans[tid][i][1] \
+            else None
+
+    out, moved, calls = {}, 0, dict.fromkeys(labels, 0)
+    for e in events:
+        if e.get("cat") != "cuda_runtime":
+            continue
+        args = e.get("args", {})
+        op = ops.get(args.get("External id"))
+        label = place(op["tid"], op["ts"]) if op else place(e["tid"],
+                                                             e["ts"])
+        moved += label != place(e["tid"], e["ts"])
+        if label:
+            out[args.get("correlation")] = label
+            calls[label] += 1
+    return out, moved, calls
+
+
+def _device_ms(prof, name, per, classes, labels=None):
     """Device ms per kernel class (over ``per`` repetitions) from a
-    torch.profiler trace: a kernel falls in the first class one of whose
-    name fragments it contains, else in "other".  Kernels run one at a
-    time on the one stream, so their durations add up to the busy time."""
+    torch.profiler trace: a kernel launched under a label of ``labels``
+    (class -> ``record_function`` name) falls in that class, any other
+    in the first class one of whose name fragments it contains, else in
+    "other".  Kernels run one at a time on the one stream, so their
+    durations add up to the busy time."""
     path = os.path.join(ROOT, "build", name)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    dev = {c: 0.0 for c in classes}
+    labels = labels or {}
+    by_corr, _, _ = _launch_labels(events, set(labels.values()))
+    of_label = {v: c for c, v in labels.items()}
+    dev = {c: 0.0 for c in list(labels) + list(classes)}
     dev["other"] = 0.0
     n_kernels = 0
     for e in events:
@@ -722,8 +1007,10 @@ def _device_ms(prof, name, per, classes):
             continue
         n_kernels += 1
         kname = e["name"].lower()
-        cls = next((c for c, frags in classes.items()
-                    if any(f in kname for f in frags)), "other")
+        cls = of_label.get(by_corr.get(e.get("args", {}).get("correlation")))
+        if cls is None:
+            cls = next((c for c, frags in classes.items()
+                        if any(f in kname for f in frags)), "other")
         dev[cls] += e["dur"] / 1e3 / per
     return dev, n_kernels
 
@@ -772,9 +1059,9 @@ def _profile_decode(engine, params, cache, tok, start, steps=8):
 # ---------------------------------------------------------------------------
 def _expected_launches(cfg, comm, schedule, summary, dims):
     """Kernel launches a train run must make, from the model's leaves and
-    layers and the run's microbatches and steps.  Every layer runs its
-    attention twice per microbatch (forward, and the recompute of the
-    backward pass); one ring launch serves every rank."""
+    layers and the run's microbatches, steps and cp degree.  Every layer
+    runs its attention twice per microbatch (forward, and the recompute of
+    the backward pass); one ring launch serves every rank."""
     from repro_torch.core import fsdp
 
     L = cfg.num_layers
@@ -782,10 +1069,11 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
                if fsdp.get(dims, p) is not None]
     top = [p for p in sharded if p[0] != fsdp.STACK_KEY]
     per_layer = len(sharded) - len(top)
-    want = {"flash_attention": 0, "odc_gather": 0,
-            "odc_scatter_accumulate": 0, "odc_gather_layers": 0,
-            "odc_scatter_accumulate_layers": 0}
-    ring = comm in ("odc", "odc-overlap")
+    want = {"flash_attention": 0, "flash_attention_state": 0,
+            "odc_gather": 0, "odc_scatter_accumulate": 0,
+            "odc_gather_layers": 0, "odc_scatter_accumulate_layers": 0}
+    ring = comm in ("odc", "odc-overlap", "cp")
+    cp = summary.get("cp", 1)
     for st in summary["steps"]:
         if schedule == "overlap":
             # microbatch j of every rank in lockstep, padded to M: per
@@ -799,6 +1087,22 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
             want["odc_scatter_accumulate"] += M * len(top) * ring
             want["odc_gather_layers"] += M * ring
             want["odc_scatter_accumulate_layers"] += M * ring
+        elif schedule == "minibatch" and cp > 1:
+            # each cp group runs its real microbatches in lockstep (a
+            # group's count is the largest of its rows'); per layer and
+            # group microbatch, in the forward and again in the recompute,
+            # every rank sweeps 2*cp kv chunks through the state kernel
+            # and the group ring-gathers k+v and positions+segment ids (2
+            # launches), and the backward gathers q+cotangent (1); every
+            # leaf is gathered once and scattered once per step
+            G = summary["world"] // cp
+            rows = len(st["counts"]) // G
+            mbs = sum(max(st["counts"][d * rows:(d + 1) * rows])
+                      for d in range(G))
+            want["flash_attention_state"] += 2 * L * mbs * cp * 2 * cp
+            want["odc_gather"] += (2 * 2 + 1) * L * mbs
+            want["odc_gather"] += len(sharded)
+            want["odc_scatter_accumulate"] += len(sharded)
         elif schedule == "minibatch":
             # each rank runs only its real microbatches; every leaf is
             # gathered once and scattered once per step
@@ -849,10 +1153,8 @@ def _overlap_timeline(path) -> dict:
     """From a train step's trace: the chained kernels' device time, the
     part of it that lies under other (compute) kernels on the timeline,
     the device time of the kernels launched under each copy label of
-    ``core.overlap``, and the device's busy time (the union of every
-    kernel's interval, since two streams run at once)."""
-    import bisect
-
+    ``core.overlap`` (``_launch_labels``), and the device's busy time (the
+    union of every kernel's interval, since two streams run at once)."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
@@ -865,41 +1167,38 @@ def _overlap_timeline(path) -> dict:
     chained_us = sum(e["dur"] for e in chained)
     under_us = sum(_covered(e["ts"], e["ts"] + e["dur"], compute)
                    for e in chained)
-    # kernel -> the copy label its launch was issued under (same thread)
-    labels = {}
-    for e in events:
-        if e.get("cat") == "user_annotation" and e["name"] in COPY_LABELS:
-            labels.setdefault(e["tid"], []).append(
-                (e["ts"], e["ts"] + e["dur"], e["name"]))
-    for spans in labels.values():
-        spans.sort()
-    by_corr = {}
-    for e in events:
-        if e.get("cat") != "cuda_runtime" or e["tid"] not in labels:
-            continue
-        spans = labels[e["tid"]]
-        i = bisect.bisect_right([sp[0] for sp in spans], e["ts"]) - 1
-        if i >= 0 and e["ts"] <= spans[i][1]:
-            by_corr[e["args"].get("correlation")] = spans[i][2]
+    # kernel -> the copy label it was launched under; and the runtime
+    # calls (not all of them launches) made under each label against the
+    # kernels the trace holds for them: calls without their kernels mean
+    # the trace lost kernels
+    by_corr, moved, calls = _launch_labels(events, COPY_LABELS)
     copies = dict.fromkeys(COPY_LABELS, 0.0)
+    found = dict.fromkeys(COPY_LABELS, 0)
     for e in kernels:
         name = by_corr.get(e["args"].get("correlation"))
         if name:
             copies[name] += e["dur"] / 1e3
+            found[name] += 1
     by_kernel = {c: sum(e["dur"] for e in chained if c in e["name"].lower())
                  / 1e3 for c in CHAINED}
     return {"chained_ms": chained_us / 1e3, "chained_by_kernel": by_kernel,
             "chained_under_compute_ms": under_us / 1e3,
             "chained_launches": len(chained), "copies_ms": copies,
+            "launches_moved": moved,
+            "calls_and_kernels": {k: (calls[k], found[k])
+                                  for k in COPY_LABELS},
             "busy_ms": busy / 1e3}
 
 
-def _profile_train_step(comm="odc", schedule="minibatch") -> dict:
+def _profile_train_step(comm="odc", schedule="minibatch", cp=1) -> dict:
     """Where one train step's time goes: host wall time of a step without
     the profiler, then device time per kernel class from a torch.profiler
-    trace of the same step (same batch, next parameters).  For the overlap
-    schedule also the chained rings' time under compute, the packing
-    copies, and the busy time as the union of the kernels' intervals."""
+    trace of the same step (same batch, next parameters), the kernels of
+    the flash backward (``flash_attention_bwd``, PyTorch code) counted
+    apart by their label.  For the overlap schedule also the chained
+    rings' time under compute, the packing copies, and the busy time as
+    the union of the kernels' intervals.  ``cp`` > 1: the cp run's
+    configuration (CP_TRAIN, lb_token) instead of TRAIN's."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.balance.cost import CostModel
@@ -910,21 +1209,25 @@ def _profile_train_step(comm="odc", schedule="minibatch") -> dict:
     from repro_torch.data.packing import build_minibatch
     from repro_torch.models import transformer as T
 
+    from repro_torch.kernels.flash_attention import BWD_LABEL
+
+    spec = CP_TRAIN if cp > 1 else TRAIN
     cfg = get_config(ARCH)
-    ranks = RankGroup.make(TRAIN["data_axis"], "cuda")
-    tr = Trainer(cfg, ranks, comm=comm, schedule=schedule)
+    ranks = RankGroup.make(cp if cp > 1 else TRAIN["data_axis"], "cuda")
+    tr = Trainer(cfg, ranks, comm=comm, schedule=schedule, cp=cp)
     shards, opt = tr.init_state(T.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED)))
     loader = SyntheticSFTLoader(
         "longalign", vocab_size=cfg.vocab_size, world_size=ranks.n,
-        minibatch_per_device=TRAIN["minibatch_per_device"],
-        max_tokens=TRAIN["max_tokens"], strategy="lb_mini",
-        max_len=TRAIN["max_len"], seed=SEED,
+        minibatch_per_device=spec["minibatch_per_device"],
+        max_tokens=spec["max_tokens"],
+        strategy="lb_token" if cp > 1 else "lb_mini",
+        max_len=spec["max_len"], seed=SEED,
         cost_model=CostModel(attention_free=cfg.is_attention_free,
-                             window=cfg.sliding_window))
+                             window=cfg.sliding_window), cp=cp)
     sd = next(loader.steps(1))
     batch = build_minibatch(sd["plan"], sd["sample_tokens"],
-                            TRAIN["max_tokens"])
+                            spec["max_tokens"])
     counts = [len(a) for a in sd["plan"].assignments]
 
     def step():
@@ -945,9 +1248,11 @@ def _profile_train_step(comm="odc", schedule="minibatch") -> dict:
     name = f"train_trace_{comm}_{tr.schedule}.json"
     dev, n_kernels = _device_ms(prof, name, 1, {
         "flash_attention": ("attn_fwd",),
+        "flash_attention_state": ("attn_state",),
         "odc_chained": CHAINED,
         "odc_rings": ("odc_gather_kernel", "odc_scatter_kernel"),
-        "gemm": ("gemm", "gemv", "cutlass", "xmma")})
+        "gemm": ("gemm", "gemv", "cutlass", "xmma")},
+        labels={"flash_backward": BWD_LABEL})
     busy = sum(dev.values())
     result = {"host_ms": wall, "host_ms_profiled": wall_prof,
               "device_ms": dev, "kernels": n_kernels}
@@ -965,7 +1270,12 @@ def _profile_train_step(comm="odc", schedule="minibatch") -> dict:
                  f"compute kernels ({share:.1%}); copies "
                  + ", ".join(f"{k} {v:.2f} ms"
                              for k, v in tl["copies_ms"].items())
-                 + "; busy is the union of kernel intervals")
+                 + f" (runtime calls, kernels in the trace: "
+                 + ", ".join(f"{k} {a}, {b}" for k, (a, b)
+                             in tl["calls_and_kernels"].items())
+                 + f"; {tl['launches_moved']} calls that their own "
+                 f"timestamps would have placed under another label or "
+                 f"none); busy is the union of kernel intervals")
     result["busy_ms"] = busy
     result["idle"] = max(0.0, 1 - busy / wall)
     log(f"train step profile ({tag}, step 0's batch, {tokens:.0f} tokens, "
@@ -1057,6 +1367,87 @@ def phase_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b': train qwen-1.5b at full width with context parallelism
+# ---------------------------------------------------------------------------
+def _cp_args(steps):
+    from repro_torch.launch import train
+
+    return train.parse_args([
+        "--arch", ARCH, "--seed", str(SEED), "--device", "cuda",
+        "--comm", "cp", "--cp", str(CP_TRAIN["cp"]), "--strategy",
+        "lb_token", "--dataset", "longalign", "--steps", str(steps),
+        "--max-tokens", str(CP_TRAIN["max_tokens"]),
+        "--max-len", str(CP_TRAIN["max_len"]),
+        "--minibatch-per-device", str(CP_TRAIN["minibatch_per_device"]),
+        "--lr", "1e-3"])
+
+
+def phase_cp_train() -> dict:
+    """The cp run through the train entry point: data 1 x cp 2 on the
+    card, lb_token plans of 8192-token group rows; then step 0 again with
+    every attention run by the plain route, and one profiled step."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core import cp
+    from repro_torch.launch import train
+    from repro_torch.models import layers
+
+    torch.cuda.reset_peak_memory_stats()
+    train.reset_launches()
+    summary = train.run(_cp_args(CP_TRAIN["steps"]))
+    torch.cuda.synchronize()
+    got = train.read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = _expected_launches(get_config(ARCH), "cp", "minibatch", summary,
+                              summary["dims"])
+    splits = [st["cp_split"] for st in summary["steps"]]
+    log(f"train cp x minibatch (data 1 x cp {CP_TRAIN['cp']}, lb_token, "
+        f"{CP_TRAIN['max_tokens']} tokens a rank): losses "
+        f"{summary['losses']}, step s "
+        f"{[round(t, 3) for t in summary['step_s']]}, tokens "
+        f"{[st['tokens'] for st in summary['steps']]}, group microbatches "
+        f"{[st['counts'] for st in summary['steps']]}, cp-split samples "
+        f"{splits}, {summary['tok_s']:.1f} tok/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB, launches {got} (want {want}), grad "
+        f"norms {[st['grad_norm'] for st in summary['steps']]}")
+    if not all(math.isfinite(x) for x in summary["losses"]):
+        fail("train cp: a loss is not finite")
+    if sum(splits) == 0:
+        fail("train cp: no sample was split across the cp group")
+    if got != want:
+        fail(f"train cp: kernel launches {got}, want {want}")
+    summary["peak_bytes"] = peak
+    summary["launches"] = got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prev = layers.set_group_attention_impl(cp.allgather_attention)
+    try:
+        plain = train.run(_cp_args(1))
+    finally:
+        layers.set_group_attention_impl(prev)
+    torch.cuda.synchronize()
+    l0, p0 = summary["losses"][0], plain["losses"][0]
+    g0, pg0 = summary["steps"][0]["grad_norm"], plain["steps"][0]["grad_norm"]
+    l_rel, g_rel = abs(l0 - p0) / abs(p0), abs(g0 - pg0) / abs(pg0)
+    log(f"train cp step 0 against the plain route (allgather_attention, "
+        f"state launches {plain['launches']['flash_attention_state']}): "
+        f"loss {l0!r} vs {p0!r} ({l_rel:.2e} relative), gradient norm "
+        f"{g0!r} vs {pg0!r} ({g_rel:.2e} relative; tol {CP_PLAIN_RTOL:g})")
+    if plain["launches"]["flash_attention_state"]:
+        fail("train cp: the plain route launched the state kernel")
+    if not (l_rel <= CP_PLAIN_RTOL and g_rel <= CP_PLAIN_RTOL):
+        fail("train cp: step 0 differs from the plain route")
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile = _profile_train_step("cp", "minibatch", cp=CP_TRAIN["cp"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"run": summary, "plain_rel": (l_rel, g_rel), "profile": profile}
+
+
+# ---------------------------------------------------------------------------
 # phase 4c: save and resume a reduced overlap run on the card
 # ---------------------------------------------------------------------------
 def phase_checkpoint() -> dict:
@@ -1128,25 +1519,48 @@ def _time_ms(fn, iters=20, warmup=3):
     return total / iters
 
 
-def _attn_bound(q, k, kw):
-    """Least time for the work this input needs: every unmasked
-    (query, key, head) triple costs 4*hd operations (QK^T and PV), and
-    the bytes are q and out once each plus K/V of the unmasked cache
-    prefix of each row, plus the int32 positions."""
+def _attn_mask_of(kw):
     from repro_torch.kernels.flash_attention import attn_mask
 
+    return attn_mask(kw["q_positions"], kw["kv_positions"],
+                     kw.get("q_segment_ids"), kw.get("kv_segment_ids"),
+                     causal=kw["causal"], window=kw["window"])
+
+
+def _attn_bound_ops(q, kw):
+    """ms of the operations this input needs at the card's peak: every
+    unmasked (query, key, head) triple costs 4*hd (QK^T and PV)."""
+    H, hd = q.shape[2], q.shape[3]
+    return 4 * hd * H * int(_attn_mask_of(kw).sum()) \
+        / PEAK_FLOPS[q.dtype] * 1e3
+
+
+def _state_bound(q, k, kw):
+    """(operations ms, bytes ms) of one state-sweep call: the operations
+    as ``_attn_bound_ops``; the bytes of q once, K/V of the keys some
+    query needs, the f32 carry (m, l, acc) read and written, and the
+    int32 positions and segment ids."""
     B, S, H, hd = q.shape
     T, KH = k.shape[1], k.shape[2]
     es = q.element_size()
-    mask = attn_mask(kw["q_positions"], kw["kv_positions"],
-                     kw.get("q_segment_ids"), kw.get("kv_segment_ids"),
-                     causal=kw["causal"], window=kw["window"])
-    pairs = int(mask.sum())
-    ops = 4 * hd * H * pairs
-    kv_rows = int(mask.any(1).sum())  # cache positions some query needs
+    kv_rows = int(_attn_mask_of(kw).any(1).sum())
+    carry = 4 * B * S * H * (2 + hd)
+    nbytes = B * S * H * hd * es + 2 * kv_rows * KH * hd * es + 2 * carry \
+        + 8 * B * (S + T)
+    return _attn_bound_ops(q, kw), nbytes / PEAK_BYTES * 1e3
+
+
+def _attn_bound(q, k, kw):
+    """Least time for the work this input needs: the operations
+    (``_attn_bound_ops``), and the bytes of q and out once each plus K/V
+    of the unmasked cache prefix of each row, plus the int32 positions."""
+    B, S, H, hd = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    es = q.element_size()
+    kv_rows = int(_attn_mask_of(kw).any(1).sum())  # keys some query needs
     nbytes = 2 * B * S * H * hd * es + 2 * kv_rows * KH * hd * es \
         + 4 * B * (S + T)
-    t_ops = ops / PEAK_FLOPS[q.dtype] * 1e3
+    t_ops = _attn_bound_ops(q, kw)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1284,6 +1698,74 @@ def _layer_ring_times(kind, n, L, c) -> dict:
             "library_ms": lib_ms}
 
 
+def _state_times() -> dict:
+    """Kernel, plain and reference times of the state sweep at the train
+    shape: rank 0's sweep of the cp run, its 4096 local rows (12/2 heads,
+    hd 128) over the gathered 8192-token row in 4 chunk calls of 2048
+    keys.  Bound: per call, the unmasked (query, key, head) triples' 4*hd
+    operations at 67 TFLOP/s against q, the kv chunk's needed rows, the
+    carry in and out and the positions at 3.35 TB/s, the larger, summed
+    over the calls.  No PyTorch call returns the unnormalized carry, so
+    ``library_ms`` is null; ``reference_sdpa_ms`` times SDPA of the same q
+    against the whole gathered row under the same mask (the normalized
+    output), one call, as a reference only."""
+    from repro_torch.core import cp
+    from repro_torch.kernels import flash_attention as fa
+
+    n, T = CP_TRAIN["cp"], 2 * CP_TRAIN["max_tokens"]
+    q, k, v, pos, seg, perm = _cp_row(n, T, seed=12)
+    S = T // n
+    local = perm[:S]  # rank 0's rows: global chunks 0 and 3
+    ql, ql_pos, ql_seg = q[:, local], pos[:, local], seg[:, local]
+    chunk = T // (2 * n)
+    calls = []
+    for c in range(2 * n):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        calls.append(dict(k=k[:, sl], v=v[:, sl], kw=dict(
+            causal=True, window=0, q_positions=ql_pos,
+            kv_positions=pos[:, sl], q_segment_ids=ql_seg,
+            kv_segment_ids=seg[:, sl])))
+
+    def sweep(fn, into=None):
+        carry = into
+        for call in calls:
+            carry = fn(ql, call["k"], call["v"], carry, **call["kw"])
+        return carry
+
+    out = fa.finish_attention(sweep(fa.flash_attention_state))
+    ref = fa.finish_attention(sweep(fa.flash_attention_state_plain))
+    rows = fa.attn_mask(ql_pos, pos, ql_seg, seg, causal=True,
+                        window=0).any(-1)
+    max_err = float((out[rows] - ref[rows]).abs().max())
+    carry = fa.fresh_carry(*ql.shape, device="cuda")
+    ms = _time_ms(lambda: sweep(fa.flash_attention_state, carry))
+    plain_ms = _time_ms(lambda: sweep(fa.flash_attention_state_plain))
+    kw_all = dict(causal=True, window=0, q_positions=ql_pos,
+                  kv_positions=pos, q_segment_ids=ql_seg,
+                  kv_segment_ids=seg)
+    lib_ms = _time_ms(_sdpa(ql, k, v, kw_all))
+    bound_ms = t_ops = t_bytes = 0.0
+    for call in calls:
+        ops_ms, bytes_ms = _state_bound(ql, call["k"], call["kw"])
+        t_ops += ops_ms
+        t_bytes += bytes_ms
+        bound_ms += max(ops_ms, bytes_ms)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    shape = (f"train (cp run, rank 0's sweep): q {tuple(ql.shape)} over "
+             f"{2 * n} kv chunks {tuple(calls[0]['k'].shape)} float32, "
+             f"{2 * n} launches, carry in place")
+    log(f"time flash_attention_state {shape}: kernel {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: operations {t_ops:.4f}, bytes "
+        f"{t_bytes:.4f}), plain {plain_ms:.4f} ms, reference sdpa over the "
+        f"gathered row {lib_ms:.4f} ms, kernel/bound {ms / bound_ms:.1f}x, "
+        f"max|diff| vs plain {max_err:.3e} over {int(rows.sum())} rows")
+    del q, k, v, calls, carry
+    torch.cuda.empty_cache()
+    return {"shape": shape, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "reference_sdpa_ms": lib_ms}
+
+
 def phase_times(errs, grad_errs, serve_launches, train_runs) -> list:
     """One record per kernel: its numbers at the first shape, and at each
     measured shape under ``per_shape``; launches over the serve and train
@@ -1329,6 +1811,15 @@ def phase_times(errs, grad_errs, serve_launches, train_runs) -> list:
                 "launches": sum(by_path["flash_attention"].values()),
                 "launches_by_path": by_path["flash_attention"],
                 **shapes[0], "per_shape": shapes}]
+    state = _state_times()
+    records.append({"name": "flash_attention_state", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:416",
+                    "launches": sum(by_path["flash_attention_state"]
+                                    .values()),
+                    "launches_by_path": by_path["flash_attention_state"],
+                    **state, "per_shape": [state]})
     for kind, name, src, replaces in (
             ("gather", "odc_gather", "odc_gather.cu",
              "src/repro/kernels/odc_gather.py:103"),
@@ -1364,15 +1855,20 @@ def main() -> int:
     phase_build()
     errs = phase_kernel_cases()
     grad_errs = phase_flash_grad()
+    phase_state_kernel()
+    phase_cp_bitwise()
+    phase_cp_grad()
     phase_rings()
     phase_ring_refusal()
     phase_layer_rings()
     phase_layer_flags()
     served = phase_serve()
     trained = phase_train()
+    cp_trained = phase_cp_train()
     phase_checkpoint()
-    records = phase_times(errs, grad_errs, served["launches"],
-                          trained["runs"])
+    runs = dict(trained["runs"])
+    runs["cp x minibatch"] = cp_trained["run"]
+    records = phase_times(errs, grad_errs, served["launches"], runs)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
     print(env["smi"])
     print(json.dumps({"kernels": records}))

@@ -14,9 +14,15 @@ their full tensors:
 
   ``odc-overlap`` ``odc`` with the overlap schedule implied (alias
                   ``overlap``, as in the JAX registry).
+  ``cp``          context parallelism (alias ``cp-ring``): parameters move
+                  as under ``odc`` over the flat data x cp ranks; the
+                  ranks form cp groups that sequence-shard their rows and
+                  attend through ``core.cp``'s ring (the Trainer's ``cp``).
+                  Under 'minibatch' and 'layer'; 'overlap' is not yet
+                  ported and raises.
 
-``hier``, ``pipe``, ``pipe-int8`` and ``cp`` (and the ``1f1b`` schedule)
-are not yet ported and raise.
+``hier``, ``pipe`` and ``pipe-int8`` (and the ``1f1b`` schedule) are not
+yet ported and raise.
 
 ``param_gather`` is the differentiable gather: a ``torch.autograd.Function``
 over every rank's shard whose backward is the backend's scatter-accumulate
@@ -33,7 +39,10 @@ the gradient scatter-accumulate (``CommBackend.param_gather``).
   ``'minibatch'``  ODC: every leaf is gathered once per minibatch, each rank
                    runs its own microbatches and accumulates the full-size
                    gradients locally, and one scatter-accumulate per leaf
-                   runs at the minibatch's end.
+                   runs at the minibatch's end.  Under cp each group runs
+                   its microbatch j in one lockstep forward (its ring
+                   attention spans the group), the group's losses summed
+                   before the backward.
   ``'overlap'``    'layer' software-pipelined: ranks in lockstep, gathers
                    and scatters once per microbatch, but layer l+1's
                    parameters are issued before layer l computes
@@ -52,6 +61,7 @@ from typing import Callable, List, Sequence
 import torch
 
 from repro_torch.core import fsdp, odc, overlap
+from repro_torch.core.ranks import cp_groups
 from repro_torch.kernels import odc_gather as kgather
 from repro_torch.kernels import odc_scatter as kscatter
 
@@ -155,13 +165,25 @@ class OverlapODCBackend(ODCBackend):
     implied_schedule = "overlap"
 
 
+class CpRingBackend(ODCBackend):
+    """Context parallelism over (data, cp) ranks (``CpRingBackend`` of the
+    JAX package without its simulator hooks): parameter transport is flat
+    ODC's over the flat data x cp world, unchanged; what cp adds is
+    inside attention, the group's ring (``core.cp``)."""
+
+    name = "cp"
+    chained = False
+
+
 COLLECTIVE = CollectiveBackend()
 ODC = ODCBackend()
 ODC_OVERLAP = OverlapODCBackend()
+CP = CpRingBackend()
 _REGISTRY = {"collective": COLLECTIVE, "odc": ODC,
-             "odc-overlap": ODC_OVERLAP, "overlap": ODC_OVERLAP}
+             "odc-overlap": ODC_OVERLAP, "overlap": ODC_OVERLAP,
+             "cp": CP, "cp-ring": CP}
 #: registry names of the JAX package that this port does not have yet
-NOT_PORTED = ("hier", "pipe", "pipe-int8", "cp", "cp-ring")
+NOT_PORTED = ("hier", "pipe", "pipe-int8")
 
 
 def backend_names():
@@ -194,6 +216,10 @@ def resolve(comm, schedule: str):
         raise NotImplementedError(
             f"schedule {schedule!r} is not yet ported to repro_torch "
             f"(ROADMAP §0); ported: {_PORTED_SCHEDULES}")
+    if backend is CP and schedule == "overlap":
+        raise NotImplementedError(
+            "comm 'cp' under the overlap schedule is not yet ported to "
+            "repro_torch (ROADMAP §0); use schedule 'minibatch' or 'layer'")
     return backend, schedule
 
 
@@ -250,12 +276,14 @@ def trainable(tree):
 
 
 def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
-                        dims, order=None, chain=None):
+                        dims, order=None, chain=None, cp: int = 1):
     """The gradient loop of one minibatch over all ranks.
 
       loss_ranks(params_list, batches, pxform, prefetch)
                   -> [(nll_sum, tokens)]
-                  one lockstep forward of the ranks' batches
+                  one lockstep forward of the ranks' batches (whole cp
+                  groups of adjacent ranks)
+      cp          the cp group size (1: every rank alone)
       dims        tree of each leaf's sharded dim (``fsdp.leaf_dims``)
       order       the rings' order (None = natural)
       chain       schedule 'overlap' with a ring backend: the Trainer's
@@ -265,7 +293,8 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
     grads): per rank, the nll sum and token count over its microbatches
     and its (un-normalized) gradient shards.  ``microbatches[r]`` is rank
     r's list of M padded microbatches; ``counts[r]`` how many of them are
-    real (the rest are empty padding).
+    real (the rest are empty padding; every rank of a cp group has its
+    group's count).
     """
     if schedule not in _PORTED_SCHEDULES:
         raise NotImplementedError(f"schedule {schedule!r} is not yet ported")
@@ -281,17 +310,26 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
             full = _gather_trees(backend, shards, dims, order, False)
             lsums = [zero(fsdp.get(s, ("final_norm",))) for s in shards]
             toks = list(lsums)
-            grads_full = []
-            for r in range(n):
-                compute, g = trainable(full[r])
-                for mb in microbatches[r][:counts[r]]:
-                    l, t = loss_ranks([compute], [mb], None, None)[0]
-                    l.backward()
-                    lsums[r] = lsums[r] + l.detach()
-                    toks[r] = toks[r] + t
+            grads_full = [None] * n
+            for grp in cp_groups(n, cp):
+                compute = {}
+                for r in grp:
+                    compute[r], grads_full[r] = trainable(full[r])
+                for j in range(max(counts[r] for r in grp)):
+                    outs = loss_ranks([compute[r] for r in grp],
+                                      [microbatches[r][j] for r in grp],
+                                      None, None)
+                    total = sum((l for l, _ in outs[1:]), outs[0][0])
+                    total.backward()
+                    for i, r in enumerate(grp):
+                        lsums[r] = lsums[r] + outs[i][0].detach()
+                        toks[r] = toks[r] + outs[i][1]
+                    # the spent graph still reaches the group's gathered
+                    # leaves: let them go with the group
+                    del outs, total
                 del compute
-                full[r] = None  # the gathered leaves are not needed now
-                grads_full.append(g)
+                for r in grp:
+                    full[r] = None  # the gathered leaves are not needed now
             # one scatter-accumulate per leaf, over every rank at once
             grads = [dict() for _ in range(n)]
             for path in fsdp.tree_paths(dims):

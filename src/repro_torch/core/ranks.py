@@ -14,13 +14,27 @@ one-card run must hold several ranks; NCCL refuses two ranks on one GPU,
 and kernels of separate processes are time-sliced on a GPU, so a ring
 whose hops wait on each other across processes would crawl or hang.
 Ranks on separate cards are a later slice (ROADMAP §0).
+
+Context parallelism lays the ranks out as (data, cp), the counterpart of
+``repro.launch.mesh.make_cp_mesh``: rank ``d*cp + c`` is position c of
+group d, a group is cp adjacent ranks (the cp axis minor), and
+parameters stay sharded over the flat ``data*cp`` ranks, as under flat
+ODC at the same world size (``cp_groups``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
+
+
+def cp_groups(n: int, cp: int) -> List[range]:
+    """The cp groups of n ranks: ``range(d*cp, (d+1)*cp)`` for each data
+    index d."""
+    if cp < 1 or n % cp:
+        raise ValueError(f"{n} ranks do not split into groups of cp={cp}")
+    return [range(d * cp, (d + 1) * cp) for d in range(n // cp)]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,6 +15,13 @@ packing, the side stream and the per-layer signals, kept across steps),
 whose per-round ``ChainedPrefetch`` materializes each layer from the
 chained gather; with ``collective`` the hook gathers layer l+1 through
 ``param_gather`` one iteration ahead.
+
+Context parallelism (``comm='cp'``, ``cp`` > 1): the ranks form groups
+of cp adjacent ranks (``core.ranks.cp_groups``); each group shares its
+batch rows, every rank holding a contiguous 1/cp slice of their
+(interleaved) sequence dim, and attention runs once per group through
+``core.cp``'s ring.  Parameters stay sharded over all ranks, as under
+flat ODC.
 """
 from __future__ import annotations
 
@@ -26,13 +33,14 @@ import torch
 
 from repro_torch.core import backend as B
 from repro_torch.core import fsdp, odc, overlap
-from repro_torch.core.ranks import RankGroup
+from repro_torch.core.ranks import RankGroup, cp_groups
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      global_norm, tree_map)
 
-# batch leaves read by the model, and the integer ones that index
+# batch leaves read by the model (each with a sequence dim), and the
+# integer ones that index
 _BATCH_KEYS = ("tokens", "targets", "positions", "segment_ids", "loss_mask")
 _INDEX_KEYS = ("tokens", "targets")
 
@@ -58,10 +66,16 @@ class Trainer:
     opt_cfg: AdamWConfig = AdamWConfig()
     lr_schedule: Optional[Callable] = None
     device_profile: object = None
+    #: the cp group size (``comm='cp'`` only)
+    cp: int = 1
 
     def __post_init__(self):
         self.backend, self.schedule = B.resolve(self.comm, self.schedule)
         n = self.ranks.n
+        if self.cp != 1 and self.backend is not B.CP:
+            raise ValueError(f"cp={self.cp} needs comm 'cp', not "
+                             f"{self.backend.name!r}")
+        self.groups = cp_groups(n, self.cp)
         self.order = odc.ring_order(n, self.device_profile)
         shapes = T.param_shapes(self.cfg)
         self.dims = fsdp.leaf_dims(shapes, n)
@@ -74,12 +88,13 @@ class Trainer:
         def loss_ranks(params_list, batches, pxform, prefetch):
             outs = T.loss_ranks(self.cfg, params_list, batches,
                                 remat=True, pxform=pxform,
-                                prefetch=prefetch, reduction="sum")
+                                prefetch=prefetch, reduction="sum",
+                                cp=self.cp)
             return [(l, m["tokens"]) for l, m in outs]
 
         self._grad_core = B.build_schedule_grad(
             self.schedule, loss_ranks=loss_ranks, backend=self.backend,
-            dims=self.dims, order=self.order, chain=self.chain)
+            dims=self.dims, order=self.order, chain=self.chain, cp=self.cp)
 
     # -- state --------------------------------------------------------------
     def init_state(self, params):
@@ -115,15 +130,31 @@ class Trainer:
                                              self)
 
     # -- batches ------------------------------------------------------------
-    def split_batch(self, batch) -> List[List[dict]]:
-        """The (M, W, S) global batch (numpy, from ``build_minibatch``) ->
-        per rank, its M microbatches of (1, S) tensors on its device."""
-        M, W = batch["tokens"].shape[:2]
-        if W != self.ranks.n:
+    def _rows(self, W: int) -> int:
+        """Batch rows per cp group (per rank without cp)."""
+        groups = len(self.groups)
+        if W % groups or (self.cp == 1 and W != groups):
             raise ValueError(f"batch has {W} rank rows, the step has "
-                             f"{self.ranks.n} ranks")
+                             f"{self.ranks.n} ranks in {groups} groups")
+        return W // groups
+
+    def split_batch(self, batch) -> List[List[dict]]:
+        """The (M, W, R) global batch (numpy, from ``build_minibatch``) ->
+        per rank, its M microbatches of (W/G, R/cp) tensors on its device:
+        group d takes its W/G rows (G groups; one rank, one row without
+        cp), and its rank c their c-th contiguous R/cp slice
+        (``batch_manual_specs`` of the JAX engine)."""
+        M, W, R = batch["tokens"].shape
+        rows = self._rows(W)
+        if R % self.cp:
+            raise ValueError(f"rows of {R} tokens do not split over cp="
+                             f"{self.cp}")
+        seq = R // self.cp
         out = []
         for r, dev in enumerate(self.ranks.devices):
+            d, c = divmod(r, self.cp)
+            rs, ss = slice(d * rows, (d + 1) * rows), slice(c * seq,
+                                                            (c + 1) * seq)
             mbs = []
             for j in range(M):
                 mb = {}
@@ -131,7 +162,7 @@ class Trainer:
                     if k not in batch:
                         continue
                     x = torch.from_numpy(np.ascontiguousarray(
-                        batch[k][j, r:r + 1]))
+                        batch[k][j, rs, ss]))
                     if k in _INDEX_KEYS:
                         x = x.long()
                     mb[k] = x.to(dev)
@@ -139,16 +170,24 @@ class Trainer:
             out.append(mbs)
         return out
 
+    def rank_counts(self, counts: Sequence[int]) -> List[int]:
+        """Per batch row microbatch counts (a plan's) -> per rank: every
+        rank of a group runs its group's rows' largest count."""
+        rows = self._rows(len(counts))
+        return [max(counts[d * rows:(d + 1) * rows])
+                for d, grp in enumerate(self.groups) for _ in grp]
+
     # -- the step -----------------------------------------------------------
     def grads(self, shards, batch, counts: Optional[Sequence[int]] = None):
         """Per-rank gradient shards of the mean loss over every rank's
         tokens, and the step's metrics (``_grad_minibatch``).  ``counts``
-        gives each rank's number of real microbatches (the plan's); the
-        minibatch schedule skips the empty padding after them, which adds
-        exactly nothing."""
+        gives each batch row's number of real microbatches (the plan's,
+        one per rank without cp); the minibatch schedule skips the empty
+        padding after them, which adds exactly nothing."""
         mbs = self.split_batch(batch)
         M = len(mbs[0])
-        counts = [M] * self.ranks.n if counts is None else list(counts)
+        counts = ([M] * self.ranks.n if counts is None
+                  else self.rank_counts(counts))
         lsums, toks, grads = self._grad_core(shards, mbs, counts)
         dev = lsums[0].device
         lsum = lsums[0]

@@ -82,19 +82,15 @@ def build_minibatch(plan, sample_tokens: Sequence[np.ndarray],
     ``cp * buffer_len`` tokens (so every cp rank's sequence shard is
     ``buffer_len``, the same per-device memory budget), and the packed
     sequence dim is pre-interleaved with
-    ``repro.core.cp.interleave_indices`` so the engine's contiguous
-    shard_map split hands each rank its head+tail chunk pair.  The port
-    has no context parallelism yet, so a cp plan raises.
+    ``repro_torch.core.cp.interleave_indices`` so the train step's
+    contiguous split (``Trainer.split_batch``) hands each rank its
+    head+tail chunk pair.
 
     Returns numpy arrays; the train step moves each rank's rows to its
     device.
     """
     cp = getattr(plan, "cp", 1)
-    if cp > 1:
-        raise NotImplementedError(
-            "context-parallel plans (cp > 1) are not yet ported to "
-            "repro_torch")
-    row_len = buffer_len
+    row_len = buffer_len * cp if cp > 1 else buffer_len
     M = max(plan.max_microbatches, 1)
     world = plan.world_size
     per_dev = []
@@ -114,6 +110,11 @@ def build_minibatch(plan, sample_tokens: Sequence[np.ndarray],
         k: np.concatenate([d[k] for d in per_dev], axis=1)
         for k in per_dev[0]
     }
+    if cp > 1:
+        from repro_torch.core.cp import interleave_indices
+        perm = interleave_indices(row_len, cp)
+        batch = {k: (v[..., perm] if v.shape[-1] == row_len else v)
+                 for k, v in batch.items()}
     if extras:  # e.g. stub modality embeddings
         for k, v in extras.items():
             batch[k] = v(M, world)

@@ -38,7 +38,9 @@ _SCATTER_LAYERS = _RING[:-2] + [ctypes.c_ulonglong, _I, _I, _I, _P,
 SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention_fwd": [_P] * 8 + [_I] * 7 + [_L] * 12
-                                     + [_I, _I, _F, _F, _P]},
+                                     + [_I, _I, _F, _F, _P],
+        "repro_flash_attention_state": [_P] * 10 + [_I] * 7 + [_L] * 9
+                                       + [_I, _I, _F, _F, _P]},
     "odc_gather": {"repro_odc_gather": _RING,
                    "repro_odc_gather_capacity": [_PI],
                    "repro_odc_gather_layers": _GATHER_LAYERS,

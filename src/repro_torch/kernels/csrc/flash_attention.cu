@@ -42,6 +42,32 @@
 // with the math, a split over the kv axis for decode (a decode step has
 // only B * KH blocks, 16 at qwen's batch 8, for 132 SMs), and vectorised
 // shared-memory access.
+//
+// The state sweep (repro_flash_attention_state).  Replaces
+// src/repro/kernels/flash_attention.py::flash_attention_state (the
+// pallas_call at :416, body _attn_state_kernel :85 / _attn_update :26):
+// the same tile loop, instantiated with STATE = true, sweeps q over one kv
+// *chunk* with the online-softmax state (m, l, acc) entering as a carry
+// and leaving unnormalized, all f32, in JAX's layout: m and l (B, S, H),
+// acc (B, S, H, hd), contiguous; a row (position s, head-in-group g) of
+// kv head kh is carry entry (b, s, h = kh * G + g).  Each block reads its
+// own rows' carry before its first tile and writes them after its last,
+// and no other block touches those rows, so the carry is updated in
+// place: one (m, l, acc) buffer serves every chunk call of a ring
+// attention.  The context-parallel ring (core/cp.py) sweeps its chunks in
+// ascending global order from a fresh carry (m = NEG_INF, l = acc = 0,
+// what attn_fwd starts from); with every chunk a multiple of BK long the
+// kv tiles are the monolithic kernel's, and a skipped (wholly masked) tile
+// is an exact no-op on every row with a valid key (see above), so
+// acc / max(l, 1e-30) of the sweep equals attn_fwd on the gathered
+// sequence bit for bit on those rows, however the q rows are grouped into
+// blocks.  The update arithmetic is written with explicit fmaf /
+// __fmul_rn so that the compiler contracts nothing differently in the two
+// instantiations.  Bound: the operations, 4 * hd per unmasked (query,
+// key, head) triple at 67 TFLOP/s, plus the carry read and written once
+// per chunk (about 50 MB at qwen's 4096 x 12 x 128 local rows, 15 us at
+// 3.35 TB/s); that extra round trip per chunk is what this simple design
+// adds to attn_fwd's list above.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -55,7 +81,10 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  void* out;
+  void* out;        // attn_fwd: (B, S, H, hd) at o_s*
+  float* m;         // the state sweep: the carry, updated in place
+  float* l;
+  float* acc;
   const int* qpos;  // (B, S)
   const int* kpos;  // (B, T)
   const int* qseg;  // (B, S) or null: all segment 0
@@ -101,8 +130,8 @@ constexpr size_t smem_bytes() {
          sizeof(int) * (2 * BQ + 2 * BK);
 }
 
-template <typename T, int HD, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads) attn_fwd(Params p) {
+template <typename T, int HD, int BQ, int BK, bool STATE>
+__device__ __forceinline__ void attn_body(const Params& p) {
   constexpr int TPR = kThreads / BQ;  // threads per query row
   constexpr int DPT = HD / TPR;       // output dims per thread
   constexpr int CPT = BK / TPR;       // score columns per thread
@@ -156,6 +185,17 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(Params p) {
   float acc[DPT];
 #pragma unroll
   for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
+  long long crow = 0;  // this row's carry entry (b, s, h)
+  if (row_ok) {
+    const int row = r0 + r;
+    crow = (b * p.S + row / G) * p.H + kh * G + row % G;
+  }
+  if (STATE && row_ok) {  // carry in
+    m = p.m[crow];
+    l = p.l[crow];
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) acc[i] = p.acc[crow * HD + li + TPR * i];
+  }
 
   const int n_tiles = (p.T + BK - 1) / BK;
   for (int kt = 0; kt < n_tiles; ++kt) {
@@ -203,7 +243,8 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(Params p) {
     for (int d = 0; d < HD; ++d) {
       const float qd = Qs[r * LD + d];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) s[j] += qd * Ks[(li + TPR * j) * LD + d];
+      for (int j = 0; j < CPT; ++j)
+        s[j] = fmaf(qd, Ks[(li + TPR * j) * LD + d], s[j]);
     }
 
     float mx = kNegInf;
@@ -230,20 +271,29 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(Params p) {
 #pragma unroll
     for (int o = TPR / 2; o > 0; o >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    l = l * corr + sum;
+    l = fmaf(l, corr, sum);
     m = m_new;
     __syncthreads();  // Ps complete
 
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= corr;
+    for (int i = 0; i < DPT; ++i) acc[i] = __fmul_rn(acc[i], corr);
     for (int c = 0; c < BK; ++c) {
       const float pc = Ps[r * LDP + c];
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] += pc * Vs[c * LD + li + TPR * i];
+      for (int i = 0; i < DPT; ++i)
+        acc[i] = fmaf(pc, Vs[c * LD + li + TPR * i], acc[i]);
     }
   }
 
-  if (row_ok) {
+  if (!row_ok) return;
+  if (STATE) {  // carry out, unnormalized
+    if (li == 0) {
+      p.m[crow] = m;
+      p.l[crow] = l;
+    }
+#pragma unroll
+    for (int i = 0; i < DPT; ++i) p.acc[crow * HD + li + TPR * i] = acc[i];
+  } else {
     const int row = r0 + r, s = row / G, h = kh * G + row % G;
     const float denom = fmaxf(l, 1e-30f);
     T* o = out + b * p.o_sb + s * p.o_ss + h * p.o_sh;
@@ -253,33 +303,57 @@ __global__ void __launch_bounds__(kThreads) attn_fwd(Params p) {
 }
 
 template <typename T, int HD, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads) attn_fwd(Params p) {
+  attn_body<T, HD, BQ, BK, false>(p);
+}
+
+template <typename T, int HD, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads) attn_state(Params p) {
+  attn_body<T, HD, BQ, BK, true>(p);
+}
+
+template <typename T, int HD, int BQ, int BK, bool STATE>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD, BQ, BK>();
+  void (*kernel)(Params) =
+      STATE ? attn_state<T, HD, BQ, BK> : attn_fwd<T, HD, BQ, BK>;
   static bool smem_set = false;  // once per instantiation
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        attn_fwd<T, HD, BQ, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
   const int rows = p.S * (p.H / p.KH);
   const dim3 grid((rows + BQ - 1) / BQ, p.KH, p.B);
-  attn_fwd<T, HD, BQ, BK><<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // Tile sizes per head dim: at most 64 accumulator floats per thread, and
-// shared memory small enough for two or three blocks on an SM.
-template <typename T>
+// shared memory small enough for two or three blocks on an SM.  BK is the
+// kv tile: a state sweep's chunks must be multiples of it (64 keys serve
+// every head dim) to reproduce attn_fwd bit for bit.
+template <typename T, bool STATE>
 cudaError_t dispatch(const Params& p, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32, 64, 64>(p, stream);
-    case 64: return launch<T, 64, 64, 64>(p, stream);
-    case 128: return launch<T, 128, 64, 32>(p, stream);
-    case 256: return launch<T, 256, 32, 32>(p, stream);
+    case 32: return launch<T, 32, 64, 64, STATE>(p, stream);
+    case 64: return launch<T, 64, 64, 64, STATE>(p, stream);
+    case 128: return launch<T, 128, 64, 32, STATE>(p, stream);
+    case 256: return launch<T, 256, 32, 32, STATE>(p, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool STATE>
+int run(const Params& p, int hd, int dtype, void* stream) {
+  if (p.B <= 0 || p.S <= 0 || p.T <= 0 || p.KH <= 0 || p.H % p.KH != 0)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<float, STATE>(p, hd, st);
+  if (dtype == 1) return dispatch<__nv_bfloat16, STATE>(p, hd, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -295,17 +369,35 @@ extern "C" int repro_flash_attention_fwd(
     long long v_sb, long long v_st, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, int causal, int window, float softcap,
     float scale, void* stream) {
-  if (B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0)
-    return cudaErrorInvalidValue;
-  Params p{q, k, v, out,
+  Params p{q, k, v, out, nullptr, nullptr, nullptr,
            static_cast<const int*>(qpos), static_cast<const int*>(kpos),
            static_cast<const int*>(qseg), static_cast<const int*>(kseg),
            B, S, T, H, KH,
            q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
            o_sb, o_ss, o_sh,
            causal, window, softcap, scale};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(p, hd, st);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(p, hd, st);
-  return cudaErrorInvalidValue;
+  return run<false>(p, hd, dtype, stream);
+}
+
+// One online-softmax sweep of q over a kv chunk: the carry m, l (B, S, H)
+// and acc (B, S, H, hd), float32 and contiguous, is read and written in
+// place (see the note at the top).  Arguments as repro_flash_attention_fwd
+// without the output.
+extern "C" int repro_flash_attention_state(
+    const void* q, const void* k, const void* v, void* m, void* l,
+    void* acc, const void* qpos, const void* kpos, const void* qseg,
+    const void* kseg, int B, int S, int T, int H, int KH, int hd, int dtype,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_st, long long k_sh, long long v_sb, long long v_st,
+    long long v_sh, int causal, int window, float softcap, float scale,
+    void* stream) {
+  Params p{q, k, v, nullptr, static_cast<float*>(m), static_cast<float*>(l),
+           static_cast<float*>(acc),
+           static_cast<const int*>(qpos), static_cast<const int*>(kpos),
+           static_cast<const int*>(qseg), static_cast<const int*>(kseg),
+           B, S, T, H, KH,
+           q_sb, q_ss, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
+           0, 0, 0,
+           causal, window, softcap, scale};
+  return run<true>(p, hd, dtype, stream);
 }

@@ -21,10 +21,22 @@ average V over whatever they padded to, as the TPU kernel does over its
 block-padded length.  No serving row is fully masked (prefill sees
 position 0, decode sees its own slot), and the comparisons in the tests
 hold only rows with at least one valid key.
+
+``flash_attention_state`` is the counterpart of
+``repro.kernels.flash_attention.flash_attention_state``, the ring
+attention's building block: one online-softmax sweep of q over a kv
+*chunk*, with the softmax state ``(m, l, acc)`` (m, l ``(B, S, H)``, acc
+``(B, S, H, hd)``, float32) entering as a carry and leaving unnormalized;
+``fresh_carry`` is the state before the first chunk and
+``finish_attention`` normalizes.  On a CUDA tensor it launches the same
+kernel's state instantiation, which updates the carry in place;
+``flash_attention_state_plain`` is its plain version, which CPU tensors
+take.  ``state_launches`` counts its launches.
 """
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import _build
 
@@ -33,6 +45,10 @@ HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+state_launches = 0
+#: the profiler label of the backward (``flash_attention_bwd``) on the
+#: card's path, so that a trace can attribute its kernels
+BWD_LABEL = "flash_attention.bwd"
 
 
 def _defaults(q, k, q_positions, kv_positions):
@@ -172,6 +188,20 @@ def flash_attention_bwd(q, k, v, g, *, causal=True, window=0,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _mask_args(q, k, q_positions, kv_positions, q_segment_ids,
+               kv_segment_ids):
+    """Positions and segment ids as the kernel takes them: int32,
+    contiguous, of the shapes of q and k."""
+    B, S = q.shape[:2]
+    T = k.shape[1]
+    q_positions, kv_positions = _defaults(q, k, q_positions, kv_positions)
+    qp = _int32(q_positions, (B, S))
+    kp = _int32(kv_positions, (B, T))
+    qs = None if q_segment_ids is None else _int32(q_segment_ids, (B, S))
+    ks = None if kv_segment_ids is None else _int32(kv_segment_ids, (B, T))
+    return qp, kp, qs, ks
+
+
 def _launch(q, k, v, qp, kp, qs, ks, causal, window, logit_softcap, scale):
     """One launch of the forward kernel; qp/kp/qs/ks already int32."""
     global launches
@@ -211,10 +241,12 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, qp, kp, qs, ks = ctx.saved_tensors
         causal, window, logit_softcap, scale = ctx.static
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, g, causal=causal, window=window,
-            logit_softcap=logit_softcap, q_positions=qp, kv_positions=kp,
-            q_segment_ids=qs, kv_segment_ids=ks, scale=scale)
+        with record_function(BWD_LABEL):
+            dq, dk, dv = flash_attention_bwd(
+                q, k, v, g, causal=causal, window=window,
+                logit_softcap=logit_softcap, q_positions=qp,
+                kv_positions=kp, q_segment_ids=qs, kv_segment_ids=ks,
+                scale=scale)
         return (dq, dk, dv) + (None,) * 8
 
 
@@ -235,15 +267,129 @@ def flash_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
                          f"{q.device}")
     _check(q, k, v, q_positions, kv_positions, q_segment_ids,
            kv_segment_ids)
-    B, S, H, hd = q.shape
-    T = k.shape[1]
     if scale is None:
-        scale = hd ** -0.5
-    q_positions, kv_positions = _defaults(q, k, q_positions, kv_positions)
-    qp = _int32(q_positions, (B, S))
-    kp = _int32(kv_positions, (B, T))
-    qs = None if q_segment_ids is None else _int32(q_segment_ids, (B, S))
-    ks = None if kv_segment_ids is None else _int32(kv_segment_ids, (B, T))
+        scale = q.shape[-1] ** -0.5
+    qp, kp, qs, ks = _mask_args(q, k, q_positions, kv_positions,
+                                q_segment_ids, kv_segment_ids)
     return _FlashAttention.apply(q, k, v, qp, kp, qs, ks, bool(causal),
                                  int(window), float(logit_softcap),
                                  float(scale))
+
+
+# ---------------------------------------------------------------------------
+# the state sweep: one chunk of a ring attention
+# ---------------------------------------------------------------------------
+def fresh_carry(B, S, H, hd, device="cpu"):
+    """The softmax state before the first kv tile: exactly what the
+    monolithic kernel starts each row from, so a sweep started here is
+    bitwise that kernel's."""
+    return (torch.full((B, S, H), NEG_INF, dtype=torch.float32,
+                       device=device),
+            torch.zeros((B, S, H), dtype=torch.float32, device=device),
+            torch.zeros((B, S, H, hd), dtype=torch.float32, device=device))
+
+
+def finish_attention(carry, dtype=torch.float32):
+    """Normalize a carried (m, l, acc): ``acc / max(l, 1e-30)`` rounded to
+    ``dtype``, the same operations as the kernel's final step, so the
+    result is bitwise what the kernel would have written."""
+    _, l, acc = carry
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(dtype)
+
+
+def flash_attention_state_plain(q, k, v, carry=None, *, causal=True,
+                                window=0, logit_softcap=0.0,
+                                q_positions=None, kv_positions=None,
+                                q_segment_ids=None, kv_segment_ids=None,
+                                scale=None):
+    """The state sweep computed directly: the chunk's masked, soft-capped
+    scores materialized in f32 and folded into the carry as one online-
+    softmax step.  Returns new (m, l, acc); the carry is not modified."""
+    B, S, H, hd = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    if scale is None:
+        scale = hd ** -0.5
+    if carry is None:
+        carry = fresh_carry(B, S, H, hd, q.device)
+    q_positions, kv_positions = _defaults(q, k, q_positions, kv_positions)
+    m0 = carry[0].reshape(B, S, KH, G)
+    l0 = carry[1].reshape(B, S, KH, G)
+    acc0 = carry[2].reshape(B, S, KH, G, hd)
+    qg = q.float().reshape(B, S, KH, G, hd) * scale
+    s = torch.einsum("bskgd,btkd->bskgt", qg, k.float())
+    if logit_softcap > 0.0:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    mask = attn_mask(q_positions, kv_positions, q_segment_ids,
+                     kv_segment_ids, causal=causal, window=window)
+    s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+    m = torch.maximum(m0, s.amax(dim=-1))
+    p = torch.exp(s - m[..., None])
+    corr = torch.exp(m0 - m)
+    l = l0 * corr + p.sum(dim=-1)
+    acc = acc0 * corr[..., None] + torch.einsum("bskgt,btkd->bskgd", p,
+                                                v.float())
+    return m.reshape(B, S, H), l.reshape(B, S, H), acc.reshape(B, S, H, hd)
+
+
+def _check_carry(carry, q):
+    B, S, H, hd = q.shape
+    for t, shape in zip(carry, ((B, S, H), (B, S, H), (B, S, H, hd))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"carry must be contiguous float32 (m, l, acc) "
+                             f"of shapes (B,S,H), (B,S,H), (B,S,H,hd) on "
+                             f"q's device; got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+
+
+def flash_attention_state(q, k, v, carry=None, *, causal=True, window=0,
+                          logit_softcap=0.0, q_positions=None,
+                          kv_positions=None, q_segment_ids=None,
+                          kv_segment_ids=None, scale=None):
+    """One online-softmax sweep of q ``(B, S, H, hd)`` over a kv chunk
+    ``(B, T, KH, hd)``, carrying ``(m, l, acc)`` (None: ``fresh_carry``).
+    The carry is updated in place and returned: by the CUDA kernel for a
+    CUDA tensor, from ``flash_attention_state_plain`` for a CPU tensor.
+    Finish with ``finish_attention``.  Not differentiable (the ring
+    attention's backward is its own, ``core.cp``).  ``window`` must be a
+    Python int."""
+    global state_launches
+    B, S, H, hd = q.shape
+    if carry is None:
+        carry = fresh_carry(B, S, H, hd, q.device)
+    _check_carry(carry, q)
+    kw = dict(causal=causal, window=window, logit_softcap=logit_softcap,
+              q_positions=q_positions, kv_positions=kv_positions,
+              q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+              scale=scale)
+    if q.device.type == "cpu":
+        for dst, src in zip(carry, flash_attention_state_plain(
+                q, k, v, carry, **kw)):
+            dst.copy_(src)
+        return carry
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_state runs on cuda or cpu, not "
+                         f"{q.device}")
+    _check(q, k, v, q_positions, kv_positions, q_segment_ids,
+           kv_segment_ids)
+    if scale is None:
+        scale = hd ** -0.5
+    qp, kp, qs, ks = _mask_args(q, k, q_positions, kv_positions,
+                                q_segment_ids, kv_segment_ids)
+    T, KH = k.shape[1], k.shape[2]
+    m, l, acc = carry
+    fn = _build.library("flash_attention").repro_flash_attention_state
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
+             l.data_ptr(), acc.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+             None if qs is None else qs.data_ptr(),
+             None if ks is None else ks.data_ptr(),
+             B, S, T, H, KH, hd, _DTYPE_CODES[q.dtype],
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             int(bool(causal)), int(window), float(logit_softcap),
+             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_state kernel failed to launch: "
+                           f"CUDA error {err}")
+    state_launches += 1
+    return carry

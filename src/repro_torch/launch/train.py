@@ -4,7 +4,10 @@ Synthetic length-realistic data -> a load-balancing strategy (LocalSort /
 LB-Micro / LB-Mini) -> sequence packing -> the FSDP train step over the
 ranks of a ``RankGroup`` (``--comm odc --schedule minibatch``, the
 paper's ODC; ``--comm collective --schedule layer``, the FSDP baseline;
-``--comm odc-overlap``, or ``--schedule overlap``, the prefetch schedule)
+``--comm odc-overlap``, or ``--schedule overlap``, the prefetch schedule;
+``--comm cp --cp N``, context parallelism: data x N ranks in ring groups of
+N that sequence-shard their rows and attend through ring attention over
+the hand-written state-sweep kernel, best with ``--strategy lb_token``)
 -> sharded AdamW -> checkpoints (``--ckpt-dir``, ``--save-every``,
 ``--resume``).  One process holds every rank; on one card every rank lies
 on it, so ``--data-axis 2`` trains with two ranks on one H100 and each
@@ -25,6 +28,8 @@ Examples:
       --reduced --device cpu --data-axis 2 --comm odc-overlap --steps 2 \\
       --ckpt-dir /tmp/ckpt --save-every 2
   ... --steps 3 --ckpt-dir /tmp/ckpt --resume   # continues at step 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen-1.5b \\
+      --reduced --device cpu --comm cp --cp 2 --strategy lb_token --steps 2
 """
 from __future__ import annotations
 
@@ -50,6 +55,7 @@ from repro_torch.optim.schedules import cosine_schedule, linear_warmup
 
 # kernel name -> (module, its launch counter)
 KERNELS = {"flash_attention": (flash_attention, "launches"),
+           "flash_attention_state": (flash_attention, "state_launches"),
            "odc_gather": (odc_gather, "launches"),
            "odc_scatter_accumulate": (odc_scatter, "launches"),
            "odc_gather_layers": (odc_gather, "layers_launches"),
@@ -88,10 +94,12 @@ def parse_args(argv=None):
                     choices=backends.backend_names() + backends.NOT_PORTED,
                     help="how each gather/scatter moves bytes: 'collective' "
                          "(fused all-gather / reduce-scatter), 'odc' (p2p "
-                         "ring, the hand-written CUDA kernels on the card) "
-                         "or 'odc-overlap' (alias 'overlap': odc with the "
-                         "overlap schedule implied); the other JAX backends "
-                         "are not yet ported")
+                         "ring, the hand-written CUDA kernels on the card), "
+                         "'odc-overlap' (alias 'overlap': odc with the "
+                         "overlap schedule implied) or 'cp' (alias "
+                         "'cp-ring': odc over data x cp ranks with ring "
+                         "attention inside each cp group, see --cp); the "
+                         "other JAX backends are not yet ported")
     ap.add_argument("--device-profile", default="none",
                     choices=("none", "homogeneous", "one_slow", "bimodal",
                              "uniform"),
@@ -111,9 +119,16 @@ def parse_args(argv=None):
     ap.add_argument("--cosine", action="store_true",
                     help="cosine decay to 10%% over --steps (with warmup)")
     ap.add_argument("--data-axis", type=int, default=0,
-                    help="ranks, all on the current card; 0 = one per "
-                         "visible device, refused on more than one card "
-                         "(ranks on separate cards are not yet ported)")
+                    help="ranks (with --comm cp: cp groups), all on the "
+                         "current card; 0 = one per visible device, "
+                         "refused on more than one card (ranks on "
+                         "separate cards are not yet ported)")
+    ap.add_argument("--cp", type=int, default=None,
+                    help="with --comm cp/cp-ring: the context-parallel "
+                         "degree (default 2); each ring group of cp "
+                         "adjacent ranks sequence-shards its rows, so "
+                         "--max-tokens is each rank's budget and a group "
+                         "row holds cp times as many")
     ap.add_argument("--model-axis", type=int, default=1,
                     help="1 only (tensor parallelism is not yet ported)")
     ap.add_argument("--seed", type=int, default=0)
@@ -131,11 +146,11 @@ def parse_args(argv=None):
         ap.add_argument(flag, default="", help="not yet ported")
     ap.add_argument("--pipe-interleave", action="store_true",
                     help="not yet ported")
-    for flag in ("--nodes", "--pipe-stages", "--cp"):
+    for flag in ("--nodes", "--pipe-stages"):
         ap.add_argument(flag, type=int, default=0, help="not yet ported")
     obs_log.add_log_args(ap)
     args = ap.parse_args(argv)
-    for flag in _NOT_PORTED_FLAGS + ("nodes", "pipe_stages", "cp"):
+    for flag in _NOT_PORTED_FLAGS + ("nodes", "pipe_stages"):
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} is not yet ported to "
                      f"repro_torch (ROADMAP §0); use repro.launch.train")
@@ -148,6 +163,17 @@ def parse_args(argv=None):
     if args.schedule == "1f1b":
         ap.error(f"--schedule {args.schedule} is not yet ported to "
                  f"repro_torch (ROADMAP §0)")
+    if backends.get_backend(args.comm) is backends.CP:
+        if args.schedule == "overlap":
+            ap.error("--comm cp under --schedule overlap is not yet ported "
+                     "to repro_torch (ROADMAP §0)")
+        args.cp = 2 if args.cp is None else args.cp
+        if args.cp < 1:
+            ap.error("--cp must be at least 1")
+    elif args.cp is not None:
+        ap.error("--cp applies to --comm cp (or cp-ring) only")
+    else:
+        args.cp = 1
     return args
 
 
@@ -163,6 +189,8 @@ def run(args, *, return_params: bool = False) -> dict:
     if args.resume and not args.ckpt_dir:
         raise SystemExit("--resume needs --ckpt-dir")
     ranks = RankGroup.make(args.data_axis, args.device)
+    if args.cp > 1:  # data groups of cp ranks each
+        ranks = RankGroup.make(ranks.n * args.cp, args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
@@ -183,11 +211,14 @@ def run(args, *, return_params: bool = False) -> dict:
         lr_schedule = lambda s: linear_warmup(s, args.warmup_steps)
     trainer = Trainer(cfg, ranks, comm=args.comm, schedule=args.schedule,
                       opt_cfg=AdamWConfig(lr=args.lr),
-                      lr_schedule=lr_schedule, device_profile=profile)
+                      lr_schedule=lr_schedule, device_profile=profile,
+                      cp=args.cp)
     comm, schedule = trainer.backend.name, trainer.schedule
     out.info(f"{cfg.name} ({cfg.family}) on {world} ranks "
-             f"{[str(d) for d in ranks.devices]} strategy={args.strategy} "
-             f"schedule={schedule} comm={comm}")
+             f"{[str(d) for d in ranks.devices]}"
+             + (f" (data {world // args.cp} x cp {args.cp})"
+                if comm == "cp" else "")
+             + f" strategy={args.strategy} schedule={schedule} comm={comm}")
 
     start_step = 0
     last = latest_step(args.ckpt_dir) if args.resume else None
@@ -212,7 +243,7 @@ def run(args, *, return_params: bool = False) -> dict:
         minibatch_per_device=args.minibatch_per_device,
         max_tokens=args.max_tokens, strategy=args.strategy,
         max_len=args.max_len, cost_model=cm, seed=args.seed,
-        device_profile=profile)
+        device_profile=profile, cp=args.cp)
 
     reset_launches()
     if ranks.devices[0].type == "cuda":
@@ -226,6 +257,7 @@ def run(args, *, return_params: bool = False) -> dict:
         batch = build_minibatch(plan, step_data["sample_tokens"],
                                 args.max_tokens)
         counts = [len(a) for a in plan.assignments]
+        split = len(getattr(plan, "cp_split", ()))
         t0 = time.time()
         shards, opt, metrics = trainer.step(shards, opt, batch, counts)
         loss = float(metrics["loss"])  # waits for the device
@@ -238,10 +270,12 @@ def run(args, *, return_params: bool = False) -> dict:
         step_s.append(dt)
         steps.append({"microbatches": int(batch["tokens"].shape[0]),
                       "counts": counts, "tokens": tokens,
-                      "grad_norm": float(metrics["grad_norm"])})
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "cp_split": split})
         out.step(i, f"step {i:4d} loss={loss:.4f} tokens={tokens:.0f} "
                     f"M={plan.max_microbatches} dt={dt:.2f}s "
-                    f"tok/s={tokens / max(dt, 1e-9):.0f}")
+                    f"tok/s={tokens / max(dt, 1e-9):.0f}"
+                    + (f" cp-split={split}" if args.cp > 1 else ""))
         if args.ckpt_dir and args.save_every \
                 and (i + 1) % args.save_every == 0:
             save_checkpoint(args.ckpt_dir, i + 1,
@@ -264,7 +298,7 @@ def run(args, *, return_params: bool = False) -> dict:
     summary = {"losses": losses, "step_s": step_s, "steps": steps,
                "launches": launches, "world": world,
                "num_layers": cfg.num_layers, "dims": trainer.dims,
-               "comm": comm, "schedule": schedule,
+               "comm": comm, "schedule": schedule, "cp": args.cp,
                "start_step": start_step, "saved": saved,
                "tokens": tokens_done, "seconds": dt,
                "tok_s": tokens_done / dt if dt > 0 else 0.0,

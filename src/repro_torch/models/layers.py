@@ -6,6 +6,12 @@ the hand-written kernel's wrapper, ``kernels.flash_attention``: the CUDA
 kernel on a CUDA tensor, its plain version on a CPU tensor.
 ``blockwise_attention`` is the algorithmic reference (a port of the JAX
 package's jnp online-softmax scan), used by the tests.
+
+Context parallelism attends once per cp group, not per rank:
+``attn_qkv`` forms a rank's q, k and v, ``group_attention`` runs the
+group's attention through the second hook, ``set_group_attention_impl``
+(default ``core.cp.ring_attention``; ``core.cp.allgather_attention`` is
+its plain version), and ``attn_out`` projects each rank's output.
 """
 from __future__ import annotations
 
@@ -14,12 +20,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.cp import ring_attention
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 
 # masked cache positions, as in the JAX package
 PAD_POSITION = -(10 ** 9)
 
 _ATTN_IMPL = flash_attention
+_GROUP_ATTN_IMPL = ring_attention
 
 
 def set_attention_impl(fn):
@@ -29,6 +37,16 @@ def set_attention_impl(fn):
     global _ATTN_IMPL
     prev = _ATTN_IMPL
     _ATTN_IMPL = flash_attention if fn is None else fn
+    return prev
+
+
+def set_group_attention_impl(fn):
+    """Install ``fn(qs, ks, vs, positions, segment_ids, **kw)``
+    (``core.cp.ring_attention``'s signature) as the attention of a cp
+    group; ``None`` restores the ring.  Returns the impl it displaced."""
+    global _GROUP_ATTN_IMPL
+    prev = _GROUP_ATTN_IMPL
+    _GROUP_ATTN_IMPL = ring_attention if fn is None else fn
     return prev
 
 
@@ -191,18 +209,9 @@ def attn_apply(cfg, p, x, *, window: int = 0, positions=None,
     past the write index masked.  Returns (out, cache).
     """
     B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
-    H, KH = cfg.num_heads, cfg.num_kv_heads
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KH, hd)
-    v = (x @ p["wv"]).reshape(B, S, KH, hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = attn_qkv(cfg, p, x, positions)
 
     kv_positions = positions
     kv_segment_ids = segment_ids
@@ -237,8 +246,39 @@ def attn_apply(cfg, p, x, *, window: int = 0, positions=None,
                      q_positions=positions, kv_positions=kv_positions,
                      q_segment_ids=segment_ids,
                      kv_segment_ids=kv_segment_ids)
-    out = out.reshape(B, S, H * hd) @ p["wo"]
-    return out, cache
+    return attn_out(p, out), cache
+
+
+def attn_qkv(cfg, p, x, positions):
+    """q (B, S, H, hd), k and v (B, S, KH, hd) of x (B, S, d): the
+    projections, the qk norm and rope at ``positions`` (B, S)."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H, KH = cfg.num_heads, cfg.num_kv_heads
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, KH, hd)
+    v = (x @ p["wv"]).reshape(B, S, KH, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_out(p, out):
+    """The output projection of an attention output (B, S, H, hd)."""
+    B, S = out.shape[:2]
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+def group_attention(cfg, qs, ks, vs, positions, segment_ids, *,
+                    window: int = 0, causal: bool = True):
+    """Causal self-attention of one cp group: every rank's q, k, v,
+    positions and segment ids in, every rank's output out."""
+    return _GROUP_ATTN_IMPL(qs, ks, vs, positions, segment_ids,
+                            causal=causal, window=window,
+                            logit_softcap=cfg.attn_logit_softcap)
 
 
 # --------------------------------------------------------------------------

@@ -19,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.odc import prefetch_scan
+from repro_torch.core.ranks import cp_groups
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -97,15 +98,36 @@ def layer_window(cfg: ModelConfig, i: int) -> int:
     return cfg.sliding_window if cfg.layer_kind(i) == "local" else 0
 
 
+def _mlp_residual(cfg, lp, x):
+    h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + L.mlp_apply(cfg, lp["mlp"], h)
+
+
 def _apply_dense_block(cfg, lp, x, *, window, positions, segment_ids, cache,
                        cache_index):
     h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     a, cache = L.attn_apply(cfg, lp["attn"], h, window=window,
                             positions=positions, segment_ids=segment_ids,
                             cache=cache, cache_index=cache_index)
-    x = x + a
-    h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + L.mlp_apply(cfg, lp["mlp"], h), cache
+    return _mlp_residual(cfg, lp, x + a), cache
+
+
+def _apply_cp_blocks(cfg, lps, xs, batches, *, window, cp):
+    """One dense block over every rank, with attention run once per cp
+    group of ``cp`` adjacent ranks (``layers.group_attention``)."""
+    qkv = [L.attn_qkv(cfg, lp["attn"],
+                      L.rms_norm(x, lp["attn_norm"], cfg.norm_eps),
+                      b.get("positions"))
+           for lp, x, b in zip(lps, xs, batches)]
+    outs = []
+    for grp in cp_groups(len(xs), cp):
+        outs += L.group_attention(
+            cfg, [qkv[r][0] for r in grp], [qkv[r][1] for r in grp],
+            [qkv[r][2] for r in grp],
+            [batches[r].get("positions") for r in grp],
+            [batches[r].get("segment_ids") for r in grp], window=window)
+    return [_mlp_residual(cfg, lp, x + L.attn_out(lp["attn"], a))
+            for lp, x, a in zip(lps, xs, outs)]
 
 
 def _logits(cfg, params, x):
@@ -169,10 +191,16 @@ def _identity(trees):
 
 
 def forward_ranks(cfg: ModelConfig, params_list, batches, *,
-                  remat: bool = False, pxform=None, prefetch=None):
+                  remat: bool = False, pxform=None, prefetch=None,
+                  cp: int = 1):
     """Final hidden states of several ranks' batches, run in lockstep layer
     by layer (no caches): the training forward, ``_forward_dense`` of the
     JAX package for each rank.
+
+    ``cp`` > 1: the ranks are cp groups of ``cp`` adjacent ranks, each
+    rank's batch one sequence shard of its group's rows (in the
+    ``core.cp`` layout), and each layer's attention runs once per group
+    (``layers.group_attention``, the ring) instead of once per rank.
 
     ``pxform(trees)`` maps the ranks' parameter subtrees (a list, one per
     rank) to the trees the layer computes with: the FSDP hook, as
@@ -193,6 +221,9 @@ def forward_ranks(cfg: ModelConfig, params_list, batches, *,
     xs = [_embed(cfg, t, b) for t, b in zip(tops, batches)]
 
     def blocks(i, xs, full):
+        if cp > 1:
+            return _apply_cp_blocks(cfg, full, xs, batches,
+                                    window=layer_window(cfg, i), cp=cp)
         return [_apply_dense_block(
             cfg, lp, x, window=layer_window(cfg, i),
             positions=b.get("positions"), segment_ids=b.get("segment_ids"),
@@ -237,11 +268,11 @@ def _loss_from_hidden(cfg, top, x, batch, reduction):
 
 def loss_ranks(cfg: ModelConfig, params_list, batches, *,
                remat: bool = False, pxform=None, prefetch=None,
-               reduction: str = "mean"):
+               reduction: str = "mean", cp: int = 1):
     """``loss`` of several ranks' batches in one lockstep forward (see
     ``forward_ranks``); returns one (loss, metrics) per rank."""
     tops, xs = forward_ranks(cfg, params_list, batches, remat=remat,
-                             pxform=pxform, prefetch=prefetch)
+                             pxform=pxform, prefetch=prefetch, cp=cp)
     return [_loss_from_hidden(cfg, t, x, b, reduction)
             for t, x, b in zip(tops, xs, batches)]
 

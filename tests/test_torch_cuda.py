@@ -1,9 +1,12 @@
 """Card tests of the port: the CUDA flash-attention kernel against its
 plain version, its gradient, its launch counter and its input checks; the
 ODC ring kernels and their chained-layer versions against the plain rings
-and their refusal of a grid that cannot be co-resident; a reduced serve
-run and a reduced train step (ODC x minibatch, collective x layer, ODC
-under the overlap schedule) on the card against the same run on the CPU.  Each test needs an NVIDIA GPU and
+and their refusal of a grid that cannot be co-resident; the state sweep
+kernel against its plain version, and the cp ring over it against the
+monolithic kernel (bitwise) and against its plain route (gradient); a
+reduced serve run and reduced train steps (ODC x minibatch, collective x
+layer, ODC under the overlap schedule, cp) on the card against the same
+run on the CPU.  Each test needs an NVIDIA GPU and
 skips without one.
 
 This file imports no jax, so it runs on a machine that has only PyTorch:
@@ -17,6 +20,7 @@ flash gradient, kernel route against plain route, 1e-4 in f32 (the
 backward's T-term sums in another order).  The rings: bitwise (they move
 data, and the scatter adds in the plain ring's hop order).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -278,5 +282,150 @@ def test_reduced_train_step_on_card_matches_cpu(cuda, comm, schedule):
             losses[dev].append(float(m["loss"]))
         if dev == "cuda" and comm != "collective":
             assert getattr(G, launched) > before
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-5 * abs(b), (losses["cuda"], losses["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# the state sweep kernel and the cp ring over it
+# ---------------------------------------------------------------------------
+def _packed(dev, dtype, B, S, H, KH, hd, seed=0):
+    """Global q, k, v of a packed row: two segments and a padding tail
+    (positions -1e9), as the train path's rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for shape in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)))
+    pad, cut = S // 8, (S - S // 8) // 2
+    pos = torch.full((B, S), -(10 ** 9), dtype=torch.int32, device=dev)
+    seg = torch.full((B, S), -1, dtype=torch.int32, device=dev)
+    pos[:, :cut] = torch.arange(cut, device=dev, dtype=torch.int32)
+    pos[:, cut:S - pad] = torch.arange(S - pad - cut, device=dev,
+                                       dtype=torch.int32)
+    seg[:, :cut], seg[:, cut:S - pad] = 0, 1
+    return q, k, v, pos, seg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunks,H,KH,hd,window", [
+    (1, 12, 2, 128, 0), (3, 4, 4, 64, 96), (4, 12, 2, 128, 96)])
+def test_state_kernel_matches_plain(cuda, dtype, chunks, H, KH, hd, window):
+    """The state sweep over ``chunks`` chunks (ragged: 90 keys each, no
+    multiple of the kv tile) from a fresh carry: the carry after each
+    chunk and the finished output against the plain version, on rows with
+    a valid key so far."""
+    q, k, v, pos, seg = _packed(cuda, dtype, 2, 90 * chunks, H, KH, hd)
+    kw = dict(causal=True, window=window, q_positions=pos,
+              q_segment_ids=seg)
+    carry, ref = None, None
+    before = fa.state_launches
+    for c in range(chunks):
+        sl = slice(c * 90, (c + 1) * 90)
+        ck = dict(kw, kv_positions=pos[:, sl], kv_segment_ids=seg[:, sl])
+        carry = fa.flash_attention_state(q, k[:, sl], v[:, sl], carry, **ck)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_state_plain(q, k[:, sl], v[:, sl], ref,
+                                             **ck)
+        rows = fa.attn_mask(pos, pos[:, :(c + 1) * 90], seg,
+                            seg[:, :(c + 1) * 90], causal=True,
+                            window=window).any(-1)
+        for a, b in zip(carry, ref):
+            a, b = a[rows], b[rows]
+            assert torch.isfinite(a).all()
+            assert ((a - b).abs() <= TOL[torch.float32] * (1 + b.abs())).all()
+    assert fa.state_launches == before + chunks
+    out, want = fa.finish_attention(carry, dtype), fa.finish_attention(ref,
+                                                                       dtype)
+    o, r = out.float()[rows], want.float()[rows]
+    assert ((o - r).abs() <= TOL[dtype] * (1 + r.abs())).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,interleave", [(2, True), (2, False), (4, True)])
+def test_ring_forward_is_bitwise_the_monolithic_kernel(cuda, dtype, n,
+                                                       interleave):
+    """The cp ring's forward (ring gather kernel, state-kernel sweep in
+    ascending global order, chunks of 64 keys: a multiple of every kv
+    tile) equals the monolithic kernel on the gathered sequence, bit for
+    bit, on rows with a valid key."""
+    from repro_torch.core import cp
+
+    S = 2 * n * 64
+    q, k, v, pos, seg = _packed(cuda, dtype, 1, S, 12, 2, 128, seed=5)
+    perm = torch.from_numpy(cp.interleave_indices(S, n) if interleave
+                            else np.arange(S)).to(cuda)
+    split = lambda x: list(x.index_select(1, perm).chunk(n, 1))
+    outs = cp.ring_attention(split(q), split(k), split(v), split(pos),
+                             split(seg), interleave=interleave)
+    out = torch.empty_like(q)
+    out[:, perm] = torch.cat(outs, 1)
+    ref = fa.flash_attention(q, k, v, q_positions=pos, kv_positions=pos,
+                             q_segment_ids=seg, kv_segment_ids=seg)
+    torch.cuda.synchronize()
+    rows = fa.attn_mask(pos, pos, seg, seg, causal=True, window=0).any(-1)
+    assert torch.equal(out[rows], ref[rows])
+
+
+def test_ring_gradient_matches_plain_route(cuda):
+    """dq, dk, dv of the ring's group Function against autograd through
+    ``allgather_attention``, 2 ranks, on rows with a valid key;
+    |diff| <= 1e-4 * (1 + |plain|), as the flash gradient above
+    (float32, the same closed form against autograd, sums in another
+    order)."""
+    from repro_torch.core import cp
+
+    n, S = 2, 512
+    q, k, v, pos, seg = _packed(cuda, torch.float32, 1, S, 12, 2, 128, seed=6)
+    perm = torch.from_numpy(cp.interleave_indices(S, n)).to(cuda)
+    split = lambda x: list(x.index_select(1, perm).chunk(n, 1))
+    # rows without a valid key (the padding tail) have no defined answer,
+    # and the two routes differentiate them differently: cotangent 0
+    rows = fa.attn_mask(pos, pos, seg, seg, causal=True, window=0).any(-1)
+    g = split(torch.randn(q.shape, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(7)) * rows[:, :, None, None])
+    grads = {}
+    for name, fn in (("ring", cp.ring_attention),
+                     ("plain", cp.allgather_attention)):
+        leaves = [[t.clone().requires_grad_(True) for t in split(x)]
+                  for x in (q, k, v)]
+        outs = fn(*leaves, split(pos), split(seg))
+        torch.autograd.backward(outs, g)
+        grads[name] = [t.grad for ts in leaves for t in ts]
+    for a, b in zip(grads["ring"], grads["plain"]):
+        assert torch.isfinite(a).all()
+        assert ((a - b).abs() <= 1e-4 * (1 + b.abs())).all(), \
+            float((a - b).abs().max())
+
+
+def test_reduced_cp_train_steps_on_card_match_cpu(cuda):
+    """Two reduced cp train steps (data 1 x cp 2, lb_token) on the card
+    (ring gather and state kernels) against the CPU (plain versions):
+    losses within 1e-5 relative, as the other train steps above."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.ranks import RankGroup
+    from repro_torch.core.train_step import Trainer
+    from repro_torch.data.loader import SyntheticSFTLoader
+    from repro_torch.data.packing import build_minibatch
+    from repro_torch.models import transformer as T
+
+    cfg = get_reduced("qwen-1.5b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    loader = SyntheticSFTLoader("longalign", vocab_size=cfg.vocab_size,
+                                world_size=2, minibatch_per_device=2,
+                                max_tokens=128, max_len=250, seed=0,
+                                strategy="lb_token", cp=2)
+    steps = list(loader.steps(2))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, RankGroup.make(2, dev), comm="cp", cp=2)
+        shards, opt = tr.init_state(_to(params, dev))
+        before = fa.state_launches
+        losses[dev] = []
+        for sd in steps:
+            batch = build_minibatch(sd["plan"], sd["sample_tokens"], 128)
+            counts = [len(a) for a in sd["plan"].assignments]
+            shards, opt, m = tr.step(shards, opt, batch, counts)
+            losses[dev].append(float(m["loss"]))
+        if dev == "cuda":
+            assert fa.state_launches > before
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-5 * abs(b), (losses["cuda"], losses["cpu"])

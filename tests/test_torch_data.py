@@ -3,8 +3,8 @@
 ``repro_torch.data`` (lengths, packing, loader) and ``repro_torch.balance``
 (cost, kk, strategies) are copies of ``repro.data`` / ``repro.balance``:
 the port may import nothing of ``repro``.  Each copy's source equals its
-original apart from import paths (``build_minibatch`` returns numpy and
-refuses context-parallel plans: the port has no jax and no cp yet), and
+original apart from import paths (``build_minibatch`` returns numpy: the
+port has no jax), and
 for several datasets, seeds, rank counts and every strategy the train
 driver offers, the copies give the same lengths, plans, tokens and packed
 batches as the originals.  Tolerance: none (integer plans, copied
@@ -108,13 +108,21 @@ def test_loader_and_batches_match(strategy, seed):
 
 
 def test_pack_sequences_and_cp_refusal():
+    """pack_sequences, and a context-parallel plan's group rows (once
+    refused by the port, now built as the JAX package builds them: cp x
+    the budget long, interleaved for the ranks)."""
     toks = [np.arange(1, 6, dtype=np.int32), np.arange(7, 10, dtype=np.int32)]
     a = tpacking.pack_sequences(toks, 12)
     b = jpacking.pack_sequences(toks, 12)
     assert all(np.array_equal(a[k], b[k]) for k in b)
-    lens = np.array([5000, 100, 120, 90, 80, 60, 70, 50])
+    lens = np.array([2000, 100, 120, 90, 80, 60, 70, 50])
     plan = tstrat.make_plan(lens, 2, 1024, strategy="lb_token", cp=2)
-    assert plan.cp == 2
-    toks = [np.ones(int(n), np.int32) for n in lens]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpacking.build_minibatch(plan, toks, 1024)
+    assert plan.cp == 2 and 0 in plan.cp_split
+    toks = [np.arange(int(n), dtype=np.int32) % 97 for n in lens]
+    tb = tpacking.build_minibatch(plan, toks, 1024)
+    jb = jpacking.build_minibatch(jstrat.make_plan(
+        lens, 2, 1024, strategy="lb_token", cp=2), toks, 1024)
+    assert sorted(tb) == sorted(jb)
+    for k in jb:
+        assert tb[k].shape[-1] == 2 * 1024
+        assert np.array_equal(tb[k], np.asarray(jb[k]))

@@ -30,7 +30,8 @@ REQUIRED = (
     "kernels/flash_attention.py", "kernels/odc_gather.py",
     "kernels/odc_scatter.py", "kernels/_ring.py", "kernels/_build.py",
     "core/odc.py", "core/ranks.py", "core/fsdp.py", "core/backend.py",
-    "core/train_step.py", "core/overlap.py", "checkpoint/io.py", "optim/adamw.py", "optim/schedules.py",
+    "core/train_step.py", "core/overlap.py", "core/cp.py",
+    "checkpoint/io.py", "optim/adamw.py", "optim/schedules.py",
     "data/lengths.py", "data/packing.py", "data/loader.py",
     "balance/cost.py", "balance/kk.py", "balance/strategies.py",
     "launch/train.py", "launch/serve.py", "bridge.py",

@@ -259,7 +259,8 @@ def test_driver_cli_on_cpu(capsys):
 @pytest.mark.parametrize("flags", [
     ["--trace", "t.json"], ["--metrics", "m.jsonl"], ["--schedule", "1f1b"],
     ["--comm", "pipe"], ["--comm", "hier"], ["--comm", "pipe-int8"],
-    ["--pipe-stages", "2"], ["--model-axis", "2"], ["--cp", "2"]])
+    ["--pipe-stages", "2"], ["--model-axis", "2"],
+    ["--comm", "cp", "--schedule", "overlap"]])
 def test_driver_refuses_what_is_not_ported(flags, capsys):
     with pytest.raises(SystemExit):
         train_cli.parse_args(["--reduced", "--device", "cpu", *flags])
