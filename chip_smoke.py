@@ -4,13 +4,17 @@ forward and gradient, the state sweep of ring attention, the ODC ring
 gather and scatter-accumulate, their chained-layer versions and the
 per-layer flags between a chained ring and the compute stream), holds the
 cp ring's forward bitwise to the monolithic kernel and its gradient to
-the plain route, serves full-width qwen-1.5b through the serve entry
-point in both modes, trains full-width qwen-1.5b with two ranks on the
-card through the train entry point (ODC x minibatch, collective x layer,
-ODC under the overlap schedule, and context parallelism: data 1 x cp 2
-with lb_token plans), profiles a train step of the first, the third and
-the cp run, saves and resumes a reduced overlap run, and times each
-kernel against its bound and its library yardstick.
+the plain route, holds the int8 codec and the compressed (q8) rings
+bitwise to their plain versions, serves full-width qwen-1.5b through the
+serve entry point in both modes, trains full-width qwen-1.5b with two
+ranks on the card through the train entry point (ODC x minibatch,
+collective x layer, ODC under the overlap schedule, context parallelism:
+data 1 x cp 2 with lb_token plans, and the two-tier backends hier, pipe
+and pipe-int8 as 2 nodes or stages x 1), trains pipe-int8 on a 2 x 2
+layout at full width and reduced depth (22 layers), profiles a train
+step of the first, the third and the cp run, saves and resumes a reduced
+overlap run, and times each kernel against its bound and its library
+yardstick.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -117,6 +121,27 @@ W_UP_SHARD = (28, 768, 8960)
 # the single-leaf kernels' tag stride of 64), and the ragged per-layer
 # shard of each case
 LAYER_RING_LS = (1, 3, 28)
+# q8 ring cases: ranks and shard shapes (ragged against the 256-value
+# chunks), and w_up's shard on 2 ranks
+Q8_RING_NS = (2, 3, 4)
+Q8_RING_SHAPES = ((1,), (1000,), (4099, 3))
+# The two-tier train runs: TRAIN's settings, the two ranks as 2 nodes (hier)
+# or 2 stages (pipe, pipe-int8) of 1 device each
+TIER_CONFIGS = (("hier", ("--nodes", "2")),
+                ("pipe", ("--pipe-stages", "2")),
+                ("pipe-int8", ("--pipe-stages", "2")))
+# The reference's own bound on |loss(pipe-int8) - loss(pipe)|
+# (tests/test_pipe.py::test_pipe_matches_collective_and_int8_within_bound);
+# printed against, not enforced: a gap above it with the kernel route equal
+# to the plain route would be the algorithm's, not the port's
+INT8_LOSS_GAP = 1e-2
+# The 2 x 2 pipe-int8 run: four ranks at full width hold about 11 copies
+# of the parameters (gathered and gradient trees of every rank, shards, m,
+# v), 74 GB at full depth; on an H100 16 of the 28 layers peaked at 44.14
+# GiB and 22 at 52.79 GiB, while 26 ran out of the card: 53.23 GiB
+# allocated and 25.07 GiB reserved but free (the allocator's fragments
+# after the earlier runs)
+PIPE4 = dict(data_axis=4, layers=22)
 
 
 def fail(msg: str):
@@ -826,6 +851,93 @@ def phase_layer_flags() -> dict:
     return {"scatter_s": scatter_s, "in_flight_at_first_read": pending}
 
 
+# ---------------------------------------------------------------------------
+# phase 3g: the int8 codec and the compressed (q8) rings against their plain
+# versions
+# ---------------------------------------------------------------------------
+def _codec_case(g):
+    """A ragged input of mixed scales with an all-zero chunk, a chunk of
+    exact ties (absmax 127: scale 1, every x.5 a tie) and a chunk whose
+    extremes land on +-127."""
+    x = torch.randn(3 * 256 + 10_000 + 17, generator=g, device="cuda")
+    x *= 10.0 ** torch.randint(-3, 4, x.shape, generator=g, device="cuda")
+    x[:256] = 0.0
+    x[256:512] = torch.arange(256, device="cuda") % 9 - 4 + 0.5
+    x[256] = 127.0
+    x[512:768] = torch.linspace(-3.0, 3.0, 256, device="cuda")
+    return x
+
+
+def phase_codec():
+    """Rows 7 and 8, kernel against plain, bitwise: at qwen's w_up shard
+    on 2 ranks and at a ragged size with zero chunks and ties."""
+    from repro_torch.core import odc
+    from repro_torch.kernels import quant as Q
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for name, x in (("w_up shard", torch.randn(W_UP_SHARD, generator=g,
+                                               device="cuda")),
+                    ("ragged", _codec_case(g))):
+        q, s = Q.quantize_int8(x)
+        y = Q.dequantize_int8(q, s, x.shape)
+        torch.cuda.synchronize()
+        qr, sr = odc.quantize_chunked(x)
+        yr = odc.dequantize_chunked(qr, sr, x.shape)
+        ok = torch.equal(q, qr) and torch.equal(s, sr) and torch.equal(y, yr)
+        bound = float((s / 2).max())
+        err = float((y - x).abs().max())
+        log(f"codec {name} {tuple(x.shape)}: codes, scales and decode "
+            f"bitwise equal to the plain versions {ok}; codes in "
+            f"[{int(q.min())}, {int(q.max())}], max |decode - x| {err:.3e} "
+            f"(at most scale/2 = {bound:.3e})")
+        if not ok:
+            fail(f"codec {name}: the kernels disagree with the plain codec")
+        if err > bound or int(q.min()) < -127:
+            fail(f"codec {name}: a code is out of range or off by more "
+                 f"than half a step")
+        del x, q, s, y, qr, sr, yr
+    torch.cuda.empty_cache()
+
+
+def phase_q8_rings() -> dict:
+    """Rows 9 and 10, kernel against plain, bitwise: n in Q8_RING_NS,
+    natural and profile-ordered rings, ragged shards, and w_up's shard on
+    2 ranks."""
+    from repro_torch.core import odc
+    from repro_torch.kernels import quant as Q
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    cases = [(n, order, shape) for n in Q8_RING_NS
+             for order in _ring_orders(n) for shape in Q8_RING_SHAPES]
+    cases.append((2, None, W_UP_SHARD))
+    bad = []
+    for n, order, shape in cases:
+        xs = [torch.randn(shape, generator=g, device="cuda")
+              for _ in range(n)]
+        gather_ok = all(torch.equal(a, b) for a, b in zip(
+            Q.odc_gather_q8(xs, order), odc.ring_gather_q8(xs, order)))
+        del xs
+        ys = [torch.randn((n * shape[0],) + tuple(shape[1:]), generator=g,
+                          device="cuda") for _ in range(n)]
+        scatter_ok = all(torch.equal(a, b) for a, b in zip(
+            Q.odc_scatter_accumulate_q8(ys, order),
+            odc.ring_scatter_accumulate_q8(ys, order)))
+        del ys
+        torch.cuda.synchronize()
+        if not (gather_ok and scatter_ok):
+            bad.append(f"n={n} order={order or 'natural'} shard {shape}: "
+                       f"gather {gather_ok} scatter {scatter_ok}")
+    torch.cuda.empty_cache()
+    log(f"q8 ring kernels: {len(cases)} cases (n in {Q8_RING_NS}, natural "
+        f"and profile-ordered, shards {Q8_RING_SHAPES} and w_up's "
+        f"{W_UP_SHARD} on 2 ranks): gather and scatter bitwise equal to the "
+        f"plain rings in {len(cases) - len(bad)}")
+    if bad:
+        fail("q8 ring kernels disagree with the plain rings:\n  "
+             + "\n  ".join(bad))
+    return {"cases": len(cases)}
+
+
 def phase_ring_refusal():
     """A launch whose blocks cannot all be resident raises before it
     runs, and the card is usable after it."""
@@ -1069,13 +1181,32 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
                if fsdp.get(dims, p) is not None]
     top = [p for p in sharded if p[0] != fsdp.STACK_KEY]
     per_layer = len(sharded) - len(top)
-    want = {"flash_attention": 0, "flash_attention_state": 0,
-            "odc_gather": 0, "odc_scatter_accumulate": 0,
-            "odc_gather_layers": 0, "odc_scatter_accumulate_layers": 0}
+    from repro_torch.launch.train import KERNELS
+
+    want = dict.fromkeys(KERNELS, 0)
     ring = comm in ("odc", "odc-overlap", "cp")
     cp = summary.get("cp", 1)
     for st in summary["steps"]:
-        if schedule == "overlap":
+        if summary.get("tiers"):
+            # two tiers (minibatch or 1f1b): every rank runs its real
+            # microbatches; each leaf that shards over both tiers is
+            # gathered and scattered once, one inter ring per device index
+            # (pipe-int8: each ring encodes and decodes once per member);
+            # a leaf of the intra tier alone moves by concatenations and
+            # sums
+            T, g = summary["tiers"]
+            both = [p for p in sharded
+                    if not isinstance(fsdp.get(dims, p), fsdp.IntraDim)]
+            want["flash_attention"] += 2 * L * sum(st["counts"])
+            if comm == "pipe-int8":
+                want["odc_gather_q8"] += len(both) * g
+                want["odc_scatter_accumulate_q8"] += len(both) * g
+                want["quantize_int8"] += len(both) * g * T
+                want["dequantize_int8"] += len(both) * g * T
+            else:
+                want["odc_gather"] += len(both) * g
+                want["odc_scatter_accumulate"] += len(both) * g
+        elif schedule == "overlap":
             # microbatch j of every rank in lockstep, padded to M: per
             # round one chained gather and one chained scatter carry the
             # trunk, the top-level leaves go through the single-leaf rings
@@ -1448,6 +1579,148 @@ def phase_cp_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b'': train qwen-1.5b at full width under the two-tier backends
+# ---------------------------------------------------------------------------
+def _tier_args(comm, flags, steps, data_axis=TRAIN["data_axis"]):
+    from repro_torch.launch import train
+
+    return train.parse_args([
+        "--arch", ARCH, "--seed", str(SEED), "--device", "cuda",
+        "--comm", comm, *flags, "--strategy", "lb_mini", "--dataset",
+        "longalign", "--data-axis", str(data_axis), "--steps", str(steps),
+        "--max-tokens", str(TRAIN["max_tokens"]),
+        "--max-len", str(TRAIN["max_len"]),
+        "--minibatch-per-device", str(TRAIN["minibatch_per_device"])])
+
+
+def _tier_run(tag, args, cfg=None) -> dict:
+    """One two-tier run through the train entry point, its launches held
+    to ``_expected_launches``."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = cfg or get_config(ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    train.reset_launches()
+    summary = train.run(args, cfg=cfg)
+    torch.cuda.synchronize()
+    got = train.read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = _expected_launches(cfg, summary["comm"], summary["schedule"],
+                              summary, summary["dims"])
+    T, g = summary["tiers"]
+    log(f"train {tag} ({T} x {g}, {cfg.num_layers} layers): losses "
+        f"{summary['losses']}, step s "
+        f"{[round(t, 3) for t in summary['step_s']]}, tokens "
+        f"{[st['tokens'] for st in summary['steps']]}, microbatches "
+        f"{[st['counts'] for st in summary['steps']]}, "
+        f"{summary['tok_s']:.1f} tok/s, peak memory {peak / 2 ** 30:.2f} "
+        f"GiB, grad norms {[st['grad_norm'] for st in summary['steps']]}, "
+        f"launches {got} (want {want})")
+    if not all(math.isfinite(x) for x in summary["losses"]):
+        fail(f"train {tag}: a loss is not finite")
+    if got != want:
+        fail(f"train {tag}: kernel launches {got}, want {want}")
+    summary["peak_bytes"] = peak
+    summary["launches"] = got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _same_step0(a, ra, b, rb):
+    """Step 0 of run a against run b: the same loss (tolerance 0) and the
+    gradient norm within GRAD_NORM_RTOL."""
+    l0a, l0b = ra["losses"][0], rb["losses"][0]
+    gna, gnb = (r["steps"][0]["grad_norm"] for r in (ra, rb))
+    gn_rel = abs(gna - gnb) / gnb
+    log(f"train {a} against {b}: step-0 losses {l0a!r} and {l0b!r}; "
+        f"step-0 gradient norms {gna!r} and {gnb!r}, {gn_rel:.2e} relative "
+        f"(tol {GRAD_NORM_RTOL:g})")
+    if l0a != l0b:
+        fail(f"train {a}: step-0 loss {l0a!r}, {b} {l0b!r} (the same "
+             f"parameters and batches through the same forward)")
+    if not math.isfinite(gna) or gn_rel > GRAD_NORM_RTOL:
+        fail(f"train {a} and {b}: step-0 gradient norms differ by "
+             f"{gn_rel:.2e}")
+
+
+def _against_plain_q8(tag, q8, steps, data_axis=TRAIN["data_axis"],
+                      cfg=None):
+    """The first ``steps`` steps of the pipe-int8 run ``q8`` against the
+    same run on the plain q8 route (the rings of ``core.odc``, no q8 or
+    codec kernel): losses and gradient norms bitwise equal."""
+    import gc
+
+    from repro_torch.core import odc
+    from repro_torch.kernels import quant
+    from repro_torch.launch import train
+
+    kernels = (quant.odc_gather_q8, quant.odc_scatter_accumulate_q8)
+    quant.odc_gather_q8 = odc.ring_gather_q8
+    quant.odc_scatter_accumulate_q8 = odc.ring_scatter_accumulate_q8
+    try:
+        train.reset_launches()
+        plain = train.run(_tier_args("pipe-int8", TIER_CONFIGS[2][1], steps,
+                                     data_axis), cfg=cfg)
+        torch.cuda.synchronize()
+    finally:
+        quant.odc_gather_q8, quant.odc_scatter_accumulate_q8 = kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = q8["losses"][:steps], plain["losses"]
+    norms = [[st["grad_norm"] for st in r["steps"][:steps]]
+             for r in (q8, plain)]
+    same = losses[0] == losses[1] and norms[0] == norms[1]
+    plain_q8 = {k: v for k, v in plain["launches"].items()
+                if "q8" in k or "quantize" in k}
+    log(f"train {tag} against the plain q8 route, {steps} step(s) (q8 and "
+        f"codec launches {plain_q8}): losses {losses[0]} vs {losses[1]}, "
+        f"gradient norms {norms[0]} vs {norms[1]}: bitwise equal {same}")
+    if any(plain_q8.values()):
+        fail(f"train {tag}: the plain route launched a q8 kernel")
+    if not same:
+        fail(f"train {tag}: a step differs from the plain q8 route")
+
+
+def phase_tier_train(odc_run) -> dict:
+    """hier, pipe and pipe-int8 at full width with TRAIN's two ranks as
+    2 x 1, through the train entry point: hier's step 0 against ODC x
+    minibatch's, pipe's against hier's, pipe-int8's steps against the same
+    run with the plain q8 route (the rings of ``core.odc``, no q8 or codec
+    kernel), bitwise, and its gap to pipe against INT8_LOSS_GAP; then the
+    2 x 2 pipe-int8 run at PIPE4's depth, its step 0 bitwise the plain q8
+    route's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    runs = {}
+    for comm, flags in TIER_CONFIGS:
+        runs[comm] = _tier_run(comm, _tier_args(comm, flags,
+                                                TRAIN["steps"]))
+    _same_step0("hier x minibatch", runs["hier"], "odc x minibatch", odc_run)
+    _same_step0("pipe x 1f1b", runs["pipe"], "hier x minibatch", runs["hier"])
+
+    _against_plain_q8("pipe-int8", runs["pipe-int8"], TRAIN["steps"])
+    gaps = [abs(a - b) for a, b in zip(runs["pipe-int8"]["losses"],
+                                       runs["pipe"]["losses"])]
+    log(f"train pipe-int8 against pipe: |loss gap| per step "
+        f"{[f'{x:.3e}' for x in gaps]}, "
+        f"{'within' if max(gaps) < INT8_LOSS_GAP else 'ABOVE'} the "
+        f"reference's bound {INT8_LOSS_GAP:g}")
+    cfg4 = dataclasses.replace(get_config(ARCH), num_layers=PIPE4["layers"])
+    runs["pipe-int8 2x2"] = _tier_run(
+        "pipe-int8 2 x 2", _tier_args("pipe-int8", TIER_CONFIGS[2][1],
+                                      TRAIN["steps"], PIPE4["data_axis"]),
+        cfg=cfg4)
+    _against_plain_q8("pipe-int8 2 x 2", runs["pipe-int8 2x2"], 1,
+                      PIPE4["data_axis"], cfg4)
+    return {"runs": runs, "int8_gaps": gaps}
+
+
+# ---------------------------------------------------------------------------
 # phase 4c: save and resume a reduced overlap run on the card
 # ---------------------------------------------------------------------------
 def phase_checkpoint() -> dict:
@@ -1766,6 +2039,89 @@ def _state_times() -> dict:
             "library_ms": None, "reference_sdpa_ms": lib_ms}
 
 
+def _q8_times(kind) -> dict:
+    """Kernel, plain and bound times of one q8 kernel at the pipe-int8
+    path's shape: qwen's w_up shard on 2 ranks (the 2 x 1 inter ring's
+    largest leaf).  Bounds, bytes at 3.35 TB/s, v values and e = 1 + 4/256
+    encoded bytes a value: the codec 4 + e per value; the q8 gather each
+    of the n encoded shards read and the n x n written, (n + n^2) v e; the
+    q8 scatter as the f32 scatter, (n^2 + n) v 4.  No PyTorch call
+    computes the encoder or the requantizing scatter; ``q * scales`` (held
+    bitwise to the kernel first) is the decoder's library call, and one
+    ``torch.stack`` per rank of codes and scales the gather's yardstick."""
+    from repro_torch.core import odc
+    from repro_torch.kernels import quant as Q
+
+    n, e = 2, 1 + 4 / 256
+    g = torch.Generator(device="cuda").manual_seed(9)
+    v = math.prod(W_UP_SHARD)
+    lib_ms = None
+    if kind in ("quantize", "dequantize"):
+        x = torch.randn(W_UP_SHARD, generator=g, device="cuda")
+        q, s = Q.quantize_int8(x)
+        if kind == "quantize":
+            qr, sr = odc.quantize_chunked(x)
+            max_err = max(float((q.int() - qr.int()).abs().max()),
+                          float((s - sr).abs().max()))
+            del qr, sr
+            fn = lambda: Q.quantize_int8(x)
+            plain = lambda: odc.quantize_chunked(x)
+        else:
+            out = Q.dequantize_int8(q, s, x.shape)
+            max_err = float((out - odc.dequantize_chunked(q, s, x.shape))
+                            .abs().max())
+            lib = q * s  # int8 x f32 promotes each code and multiplies once
+            if not torch.equal(lib.view(-1), out.view(-1)):
+                fail("time dequantize: the library call `q * scales` is "
+                     "not bitwise the kernel's output")
+            del out, lib
+            fn = lambda: Q.dequantize_int8(q, s, x.shape)
+            plain = lambda: odc.dequantize_chunked(q, s, x.shape)
+            lib_ms = _time_ms(lambda: q * s, iters=5, warmup=1)
+        nbytes = v * (4 + e)
+        shape_s = f"float32 {W_UP_SHARD} ({v * 4 / 2 ** 30:.2f} GiB)"
+    elif kind == "gather":
+        enc = [Q.quantize_int8(torch.randn(W_UP_SHARD, generator=g,
+                                           device="cuda")) for _ in range(n)]
+        qs, ss = [q for q, _ in enc], [s for _, s in enc]
+        out = Q.gather_codes(qs, ss)
+        max_err = float(max(
+            max(int((a.view(-1, 256).int() - b.int()).abs().max()),
+                float((c.view(-1) - d.view(-1)).abs().max()))
+            for a, c, b, d in zip(out[0], out[1], odc.ring_gather(qs),
+                                  odc.ring_gather(ss))))
+        del out
+        fn = lambda: Q.gather_codes(qs, ss)
+        plain = lambda: (odc.ring_gather(qs), odc.ring_gather(ss))
+        lib_ms = _time_ms(lambda: [(torch.stack(qs), torch.stack(ss))
+                                   for _ in range(n)], iters=5, warmup=1)
+        nbytes = (n + n * n) * v * e
+        shape_s = f"n={n} codes of float32 shards {W_UP_SHARD}"
+    else:
+        ys = [torch.randn((n * W_UP_SHARD[0],) + W_UP_SHARD[1:],
+                          generator=g, device="cuda") for _ in range(n)]
+        max_err = max(float((a - b).abs().max()) for a, b in zip(
+            Q.odc_scatter_accumulate_q8(ys),
+            odc.ring_scatter_accumulate_q8(ys)))
+        fn = lambda: Q.odc_scatter_accumulate_q8(ys)
+        plain = lambda: odc.ring_scatter_accumulate_q8(ys)
+        nbytes = (n * n + n) * v * 4
+        shape_s = f"n={n} float32 chunks {W_UP_SHARD}"
+    torch.cuda.empty_cache()
+    ms = _time_ms(fn, iters=5, warmup=1)
+    plain_ms = _time_ms(plain, iters=3, warmup=1)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+    log(f"time {kind} (q8) {shape_s}: kernel {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms (bytes), plain {plain_ms:.4f} ms, library "
+        f"{lib}, kernel/bound {ms / bound_ms:.1f}x, max |kernel - plain| "
+        f"{max_err}")
+    torch.cuda.empty_cache()
+    return {"shape": shape_s, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": lib_ms}
+
+
 def phase_times(errs, grad_errs, serve_launches, train_runs) -> list:
     """One record per kernel: its numbers at the first shape, and at each
     measured shape under ``per_shape``; launches over the serve and train
@@ -1846,6 +2202,19 @@ def phase_times(errs, grad_errs, serve_launches, train_runs) -> list:
                         "launches": sum(by_path[name].values()),
                         "launches_by_path": by_path[name], **rec,
                         "per_shape": [rec]})
+    for kind, name, src, replaces in (
+            ("quantize", "quantize_int8", "quant.cu", "quant.py:56"),
+            ("dequantize", "dequantize_int8", "quant.cu", "quant.py:70"),
+            ("gather", "odc_gather_q8", "odc_q8.cu", "quant.py:148"),
+            ("scatter", "odc_scatter_accumulate_q8", "odc_q8.cu",
+             "quant.py:253")):
+        rec = _q8_times(kind)
+        records.append({"name": name, "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{src}",
+                        "replaces": f"src/repro/kernels/{replaces}",
+                        "launches": sum(by_path[name].values()),
+                        "launches_by_path": by_path[name], **rec,
+                        "per_shape": [rec]})
     return records
 
 
@@ -1862,12 +2231,17 @@ def main() -> int:
     phase_ring_refusal()
     phase_layer_rings()
     phase_layer_flags()
+    phase_codec()
+    phase_q8_rings()
     served = phase_serve()
     trained = phase_train()
     cp_trained = phase_cp_train()
+    tiers = phase_tier_train(trained["runs"]["odc x minibatch"])
     phase_checkpoint()
     runs = dict(trained["runs"])
     runs["cp x minibatch"] = cp_trained["run"]
+    for tag, run in tiers["runs"].items():
+        runs[tag] = run
     records = phase_times(errs, grad_errs, served["launches"], runs)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
     print(env["smi"])

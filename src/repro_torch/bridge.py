@@ -37,11 +37,11 @@ def train_state_from_numpy(params, opt_state, trainer, dtype=None):
     from repro_torch.core import fsdp
 
     cpu = params_from_numpy(params, "cpu", dtype)
-    shards = fsdp.shard_params(cpu, trainer.ranks)
+    shards = fsdp.shard_params(cpu, trainer.ranks, trainer.dims)
     m = fsdp.shard_params(params_from_numpy(opt_state["m"], "cpu"),
-                          trainer.ranks)
+                          trainer.ranks, trainer.dims)
     v = fsdp.shard_params(params_from_numpy(opt_state["v"], "cpu"),
-                          trainer.ranks)
+                          trainer.ranks, trainer.dims)
     step = torch.tensor(int(np.asarray(opt_state["step"])), dtype=torch.int32)
     opts = [{"m": m[r], "v": v[r], "step": step.clone()}
             for r in range(len(shards))]

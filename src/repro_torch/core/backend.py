@@ -21,8 +21,19 @@ their full tensors:
                   Under 'minibatch' and 'layer'; 'overlap' is not yet
                   ported and raises.
 
-``hier``, ``pipe`` and ``pipe-int8`` (and the ``1f1b`` schedule) are not
-yet ported and raise.
+  ``hier``        two-tier ODC over (node, device) ranks (``ranks.Tiers``):
+                  a gather is the intra tier's concatenation, then the
+                  ring gather kernel over each inter ring (the ranks of
+                  one device index across the nodes); a scatter is the
+                  ring scatter kernel over the inter rings, then the intra
+                  tier's sum-scatter.  A device profile orders the inter
+                  ring by node (``DeviceProfile.node_collapse``).  Under
+                  'minibatch' and 'layer'; 'overlap' is not yet ported
+                  and raises.
+  ``pipe``        hier's transport over (pipe, data) ranks, the ``1f1b``
+                  schedule implied; bit-exact with ``hier``.
+  ``pipe-int8``   ``pipe`` with the inter tier on the chunked int8 wire:
+                  ``kernels.quant``'s compressed rings.
 
 ``param_gather`` is the differentiable gather: a ``torch.autograd.Function``
 over every rank's shard whose backward is the backend's scatter-accumulate
@@ -53,6 +64,17 @@ the gradient scatter-accumulate (``CommBackend.param_gather``).
                    kernels, one gather and one scatter launch per round on
                    a side stream (``core.overlap``), and only the top-level
                    leaves through the single-leaf rings.
+  ``'1f1b'``       'minibatch' with each rank's (or cp group's)
+                   microbatch forwards and backwards issued in the stage-0
+                   ``sim.timeline.instructions_1f1b`` order, at most
+                   warmup + 1 graphs live; 'minibatch' is its one-stage
+                   case (F0 B0 F1 B1 ...).  Full-size gradients accumulate
+                   in backward order, one scatter per leaf at the end.
+
+Under a two-tier layout the norms shard over the intra tier only
+(``fsdp.IntraDim``); after the scatters their gradients are summed over
+the inter tier, and a replicated leaf's over every rank (the leftover
+psum of ``gspmd.make_train_step``).
 """
 from __future__ import annotations
 
@@ -61,12 +83,13 @@ from typing import Callable, List, Sequence
 import torch
 
 from repro_torch.core import fsdp, odc, overlap
-from repro_torch.core.ranks import cp_groups
+from repro_torch.core.ranks import Tiers, cp_groups
 from repro_torch.kernels import odc_gather as kgather
 from repro_torch.kernels import odc_scatter as kscatter
+from repro_torch.kernels import quant as kquant
+from repro_torch.sim.timeline import instructions_1f1b
 
 SCHEDULES = ("layer", "minibatch", "overlap", "1f1b")
-_PORTED_SCHEDULES = ("layer", "minibatch", "overlap")
 
 
 class CommBackend:
@@ -77,6 +100,13 @@ class CommBackend:
     implied_schedule = None
     #: the overlap schedule moves the trunk through the chained rings
     chained = False
+    #: parameters shard over a two-tier (inter, intra) layout
+    two_tier = False
+
+    def ring_order(self, n: int, device_profile=None):
+        """The order of this backend's rings over n ranks for a device
+        profile (None: natural)."""
+        return odc.ring_order(n, device_profile)
 
     def gather(self, shards, order=None) -> List[torch.Tensor]:
         """Per-rank (c, ...) shards -> per-rank (n*c, ...) full tensors."""
@@ -175,15 +205,146 @@ class CpRingBackend(ODCBackend):
     chained = False
 
 
+class HierBackend(CommBackend):
+    """Hierarchical (node x device) ODC (``HierBackend`` of the JAX
+    package without its simulator hooks), over the ``Tiers`` of ``on``:
+
+      gather   shard --intra concatenation--> node chunk
+                     --ring gather over the inter ring--> full tensor
+      scatter  full  --ring scatter over the inter ring--> node chunk
+                     --intra sum-scatter--> owned shard
+
+    One inter ring per device index, each one kernel launch on the card.
+    A leaf that shards over the intra tier alone (``fsdp.IntraDim``) uses
+    that tier's collective only.  ``order`` is the inter ring's order over
+    the nodes (``ring_order``)."""
+
+    name = "hier"
+    two_tier = True
+    #: the inter tier rides the chunked int8 wire
+    compress = False
+
+    def __init__(self, tiers: Tiers = None):
+        self.tiers = tiers
+
+    def on(self, tiers: Tiers) -> "HierBackend":
+        """This backend over a two-tier layout."""
+        return type(self)(tiers)
+
+    def _layout(self, n: int) -> Tiers:
+        if self.tiers is None or self.tiers.n != n:
+            raise ValueError(f"comm {self.name!r} needs the two-tier layout "
+                             f"of its {n} ranks (backend.on(Tiers)), got "
+                             f"{self.tiers}")
+        return self.tiers
+
+    def ring_order(self, n: int, device_profile=None):
+        """The inter ring's order over the nodes (``_node_profile``): a
+        profile of the nodes as it is, a profile of every rank collapsed
+        to node granularity (a node is gated by its slowest device), any
+        other profile ignored (the natural ring)."""
+        t = self._layout(n)
+        prof = None
+        if device_profile is not None:
+            if device_profile.world_size == t.inter:
+                prof = device_profile
+            elif device_profile.world_size == t.n:
+                prof = device_profile.node_collapse(t.intra)
+        return odc.ring_order(t.inter, prof)
+
+    def _ring_gather(self, xs, order):
+        if self.compress:
+            return kquant.odc_gather_q8(xs, order)
+        return kgather.odc_gather(xs, order)
+
+    def _ring_scatter(self, ys, order):
+        if self.compress:
+            return kquant.odc_scatter_accumulate_q8(ys, order)
+        return kscatter.odc_scatter_accumulate(ys, order)
+
+    def gather(self, shards, order=None):
+        t = self._layout(len(shards))
+        node = list(shards)
+        if t.intra > 1:
+            for grp in t.intra_groups():
+                for r, f in zip(grp, odc.collective_gather(
+                        [shards[r] for r in grp])):
+                    node[r] = f
+        out = [None] * t.n
+        for ring in t.inter_rings():
+            for r, f in zip(ring, self._ring_gather([node[r] for r in ring],
+                                                    order)):
+                out[r] = f
+        return out
+
+    def scatter_accumulate(self, ys, order=None):
+        t = self._layout(len(ys))
+        node = [None] * t.n
+        for ring in t.inter_rings():
+            for r, s in zip(ring, self._ring_scatter([ys[r] for r in ring],
+                                                     order)):
+                node[r] = s
+        if t.intra == 1:
+            return node
+        out = [None] * t.n
+        for grp in t.intra_groups():
+            for r, s in zip(grp, odc.collective_scatter(
+                    [node[r] for r in grp])):
+                out[r] = s
+        return out
+
+    def _intra(self, fn, xs, dim):
+        """``fn`` (a collective over one group's list, on dim 0) over
+        each intra group, along ``dim``."""
+        t = self._layout(len(xs))
+        moved = [x.movedim(dim, 0).contiguous() for x in xs]
+        out = [None] * t.n
+        for grp in t.intra_groups():
+            for r, y in zip(grp, fn([moved[r] for r in grp])):
+                out[r] = y.movedim(0, dim).contiguous()
+        return out
+
+    def gather_dim(self, shards, dim: int, order=None):
+        if isinstance(dim, fsdp.IntraDim):
+            return self._intra(odc.collective_gather, shards, dim)
+        return super().gather_dim(shards, dim, order)
+
+    def scatter_dim(self, ys, dim: int, order=None):
+        if isinstance(dim, fsdp.IntraDim):
+            return self._intra(odc.collective_scatter, ys, dim)
+        return super().scatter_dim(ys, dim, order)
+
+
+class PipeBackend(HierBackend):
+    """Pipeline-parallel ODC over (pipe, data) ranks: hier's transport
+    with the pipe tier as the inter tier and data as the intra tier, the
+    ``1f1b`` schedule implied (``PipeBackend`` of the JAX package without
+    its simulator hooks).  With ``compress`` off the bytes moved are
+    bit-exact with ``hier``'s on the same layout."""
+
+    name = "pipe"
+    implied_schedule = "1f1b"
+
+
+class PipeInt8Backend(PipeBackend):
+    """``pipe`` with the inter tier's rings on the chunked int8 wire
+    (``kernels.quant``); the intra tier stays full precision."""
+
+    name = "pipe-int8"
+    compress = True
+
+
 COLLECTIVE = CollectiveBackend()
 ODC = ODCBackend()
 ODC_OVERLAP = OverlapODCBackend()
 CP = CpRingBackend()
+HIER = HierBackend()
+PIPE = PipeBackend()
+PIPE_INT8 = PipeInt8Backend()
 _REGISTRY = {"collective": COLLECTIVE, "odc": ODC,
              "odc-overlap": ODC_OVERLAP, "overlap": ODC_OVERLAP,
-             "cp": CP, "cp-ring": CP}
-#: registry names of the JAX package that this port does not have yet
-NOT_PORTED = ("hier", "pipe", "pipe-int8")
+             "cp": CP, "cp-ring": CP, "hier": HIER, "pipe": PIPE,
+             "pipe-int8": PIPE_INT8}
 
 
 def backend_names():
@@ -196,12 +357,8 @@ def get_backend(name) -> CommBackend:
         return name
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"comm backend {name!r} is not yet ported to repro_torch "
-            f"(ROADMAP §0); ported: {backend_names()}")
-    raise ValueError(f"unknown comm backend {name!r}; ported: "
-                     f"{backend_names()}, not yet ported: {NOT_PORTED}")
+    raise ValueError(f"unknown comm backend {name!r}; one of "
+                     f"{backend_names()}")
 
 
 def resolve(comm, schedule: str):
@@ -212,14 +369,11 @@ def resolve(comm, schedule: str):
     schedule = backend.implied_schedule or schedule
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}; one of {SCHEDULES}")
-    if schedule not in _PORTED_SCHEDULES:
+    if schedule == "overlap" and (backend is CP or backend.two_tier):
         raise NotImplementedError(
-            f"schedule {schedule!r} is not yet ported to repro_torch "
-            f"(ROADMAP §0); ported: {_PORTED_SCHEDULES}")
-    if backend is CP and schedule == "overlap":
-        raise NotImplementedError(
-            "comm 'cp' under the overlap schedule is not yet ported to "
-            "repro_torch (ROADMAP §0); use schedule 'minibatch' or 'layer'")
+            f"comm {backend.name!r} under the overlap schedule is not yet "
+            f"ported to repro_torch (ROADMAP.md queue 1); use schedule "
+            f"'minibatch' or 'layer'")
     return backend, schedule
 
 
@@ -276,7 +430,8 @@ def trainable(tree):
 
 
 def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
-                        dims, order=None, chain=None, cp: int = 1):
+                        dims, order=None, chain=None, cp: int = 1,
+                        pipe_stages: int = 1, pipe_interleave: bool = False):
     """The gradient loop of one minibatch over all ranks.
 
       loss_ranks(params_list, batches, pxform, prefetch)
@@ -288,6 +443,9 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
       order       the rings' order (None = natural)
       chain       schedule 'overlap' with a ring backend: the Trainer's
                   ``core.overlap.ChainedLayers``
+      pipe_stages, pipe_interleave
+                  schedule '1f1b': the depth and variant of the stage-0
+                  ``instructions_1f1b`` order
 
     Returns grad_core(shards, microbatches, counts) -> (lsums, toks,
     grads): per rank, the nll sum and token count over its microbatches
@@ -296,15 +454,20 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
     real (the rest are empty padding; every rank of a cp group has its
     group's count).
     """
-    if schedule not in _PORTED_SCHEDULES:
-        raise NotImplementedError(f"schedule {schedule!r} is not yet ported")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}; one of {SCHEDULES}")
+    if schedule == "1f1b" and pipe_stages < 1:
+        raise ValueError(f"schedule '1f1b' needs pipe_stages >= 1, got "
+                         f"{pipe_stages}")
     top_dims = {k: v for k, v in dims.items() if k != fsdp.STACK_KEY}
     lay_dims = fsdp.layer_dims(dims)
 
     def zero(t):
         return torch.zeros((), dtype=torch.float32, device=t.device)
 
-    if schedule == "minibatch":
+    if schedule in ("minibatch", "1f1b"):
+        stages = pipe_stages if schedule == "1f1b" else 1
+
         def grad_core(shards, microbatches, counts):
             n = len(shards)
             full = _gather_trees(backend, shards, dims, order, False)
@@ -315,18 +478,24 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
                 compute = {}
                 for r in grp:
                     compute[r], grads_full[r] = trainable(full[r])
-                for j in range(max(counts[r] for r in grp)):
+                # the group's summed loss of each microbatch in flight,
+                # until its backward
+                pending = {}
+                for op, j in instructions_1f1b(
+                        max(counts[r] for r in grp), stages,
+                        interleave=pipe_interleave):
+                    if op == "B":
+                        pending.pop(j).backward()
+                        continue
                     outs = loss_ranks([compute[r] for r in grp],
                                       [microbatches[r][j] for r in grp],
                                       None, None)
-                    total = sum((l for l, _ in outs[1:]), outs[0][0])
-                    total.backward()
+                    pending[j] = sum((l for l, _ in outs[1:]), outs[0][0])
                     for i, r in enumerate(grp):
                         lsums[r] = lsums[r] + outs[i][0].detach()
                         toks[r] = toks[r] + outs[i][1]
-                    # the spent graph still reaches the group's gathered
-                    # leaves: let them go with the group
-                    del outs, total
+                    del outs
+                assert not pending, "1F1B order left unpaired forwards"
                 del compute
                 for r in grp:
                     full[r] = None  # the gathered leaves are not needed now
@@ -335,14 +504,12 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
             for path in fsdp.tree_paths(dims):
                 d = fsdp.get(dims, path)
                 ys = [fsdp.get(g, path) for g in grads_full]
-                if d is None:
-                    out = _sum_over_ranks(ys)
-                else:
-                    out = backend.scatter_dim(ys, d, order)
+                out = ys if d is None else backend.scatter_dim(ys, d, order)
                 for g, o in zip(grads, out):
                     fsdp.put(g, path, o)
                 for g in grads_full:
                     fsdp.put(g, path, None)
+            _sum_leftover(grads, dims, backend)
             return lsums, toks, grads
 
         return grad_core
@@ -398,15 +565,29 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
                 for path in fsdp.tree_paths(trunk):
                     fsdp.put(g, (fsdp.STACK_KEY,) + path,
                              fsdp.get(trunk, path))
-        # a replicated leaf's gradient is summed over the ranks
-        for path in fsdp.tree_paths(dims):
-            if fsdp.get(dims, path) is None:
-                out = _sum_over_ranks([fsdp.get(g, path) for g in grads])
-                for g, o in zip(grads, out):
-                    fsdp.put(g, path, o)
+        _sum_leftover(grads, dims, backend)
         return lsums, toks, grads
 
     return grad_core
+
+
+def _sum_leftover(grads, dims, backend):
+    """The leftover psum, in place: a replicated leaf's gradient summed
+    over every rank, an ``IntraDim`` leaf's (already scattered over its
+    intra tier) over the inter tier."""
+    n = len(grads)
+    for path in fsdp.tree_paths(dims):
+        d = fsdp.get(dims, path)
+        if d is None:
+            groups = [range(n)]
+        elif isinstance(d, fsdp.IntraDim):
+            groups = backend.tiers.inter_rings()
+        else:
+            continue
+        ys = [fsdp.get(g, path) for g in grads]
+        for grp in groups:
+            for r, o in zip(grp, _sum_over_ranks([ys[r] for r in grp])):
+                fsdp.put(grads[r], path, o)
 
 
 class _LayerPrefetch:

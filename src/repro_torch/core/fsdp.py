@@ -13,6 +13,17 @@ the ranks.
 
 Rank r's shard of a leaf sharded on dim d is the r-th of n equal pieces
 along d, as ``shard_map`` hands it out.
+
+Under a two-tier layout (``ranks.Tiers``: the ``hier`` and ``pipe``
+backends' (inter, intra) data axes) every leaf above shards over both
+tiers, node-major, exactly as over the flat ranks -- except the leaves
+of the last rule (norms): ``leaf_pspec`` shards those over the innermost
+data axis only.  Their dim is an ``IntraDim``: rank ``t*intra + d`` holds
+piece d of ``intra``, the pieces are replicated across the groups, a
+gather concatenates a group's pieces, and their gradients are summed over
+the inter tier after the intra scatter (the leftover psum of
+``gspmd.make_train_step``).  Over an intra tier of one rank such a leaf
+is replicated.
 """
 from __future__ import annotations
 
@@ -25,9 +36,32 @@ _DIM0 = ("lm_head", "wq", "wk", "wv", "w_gate", "w_up")
 _DIM1 = ("embed", "wo", "w_down")
 
 
-def leaf_dim(path: Sequence[str], shape, n: int) -> Optional[int]:
+class IntraDim(int):
+    """The sharded dim of a leaf that shards over the intra tier of a
+    two-tier layout only, into ``intra`` pieces."""
+
+    def __new__(cls, dim: int, intra: int):
+        obj = super().__new__(cls, dim)
+        obj.intra = intra
+        return obj
+
+    def __repr__(self):
+        return f"IntraDim({int(self)}, intra={self.intra})"
+
+
+def shifted(d, k: int):
+    """A sharded dim (or None) moved by k, keeping its kind."""
+    if d is None:
+        return None
+    return IntraDim(d + k, d.intra) if isinstance(d, IntraDim) else d + k
+
+
+def leaf_dim(path: Sequence[str], shape, n: int,
+             intra: Optional[int] = None) -> Optional[int]:
     """The sharded dim of the leaf at ``path`` (a key tuple) with this
-    full shape, or None when the leaf is replicated over n ranks."""
+    full shape, or None when the leaf is replicated over n ranks.
+    ``intra``: the intra tier's size under a two-tier layout of n ranks
+    (the last rule's leaves then shard over it alone: ``IntraDim``)."""
     name = path[-1]
     stacked = 1 if path[0] == STACK_KEY else 0
     logical = len(shape) - stacked
@@ -37,6 +71,11 @@ def leaf_dim(path: Sequence[str], shape, n: int) -> Optional[int]:
         d = 1
     else:
         d = logical - 1
+        if intra is not None and intra != n:
+            dim = stacked + d
+            if intra == 1 or shape[dim] % intra or shape[dim] < intra:
+                return None
+            return IntraDim(dim, intra)
     dim = stacked + d
     if shape[dim] % n or shape[dim] < n:
         return None
@@ -49,27 +88,38 @@ def _map(fn, tree, path=()):
     return fn(path, tree)
 
 
-def leaf_dims(params, n: int):
+def leaf_dims(params, n: int, intra: Optional[int] = None):
     """Tree of the sharded dim of every leaf (None = replicated)."""
-    return _map(lambda p, x: leaf_dim(p, tuple(x.shape), n), params)
+    return _map(lambda p, x: leaf_dim(p, tuple(x.shape), n, intra), params)
 
 
 def layer_dims(dims):
     """The dims of one layer's slice of the stacked leaves."""
-    return _map(lambda p, d: None if d is None else d - 1, dims[STACK_KEY])
+    return _map(lambda p, d: shifted(d, -1), dims[STACK_KEY])
 
 
-def shard_params(params, ranks) -> List[dict]:
-    """Full tree -> one shard tree per rank, each on its rank's device."""
+def pieces(d, n: int) -> int:
+    """How many distinct pieces n ranks hold of a leaf sharded on ``d``:
+    1 replicated, ``intra`` for an ``IntraDim``, else n."""
+    if d is None:
+        return 1
+    return d.intra if isinstance(d, IntraDim) else n
+
+
+def shard_params(params, ranks, dims=None) -> List[dict]:
+    """Full tree -> one shard tree per rank, each on its rank's device;
+    ``dims`` defaults to the flat layout's ``leaf_dims``."""
     n = len(ranks.devices)
-    dims = leaf_dims(params, n)
+    if dims is None:
+        dims = leaf_dims(params, n)
 
     def piece(r):
         def f(path, x):
             d = get(dims, path)
             if d is None:
                 return x.detach().to(ranks.devices[r], copy=True)
-            return x.detach().chunk(n, dim=d)[r].to(
+            k = pieces(d, n)
+            return x.detach().chunk(k, dim=d)[r % k].to(
                 ranks.devices[r], copy=True).contiguous()
         return _map(f, params)
 
@@ -79,9 +129,11 @@ def shard_params(params, ranks) -> List[dict]:
 def unshard_params(shards: Sequence[dict], dims, device="cpu"):
     """One shard tree per rank -> the full tree on ``device``, with
     ``dims`` the tree of sharded dims (``leaf_dims`` of the full tree); a
-    replicated leaf is taken from rank 0."""
+    replicated leaf is taken from rank 0, an ``IntraDim`` leaf from the
+    first group."""
     def f(path, d):
-        parts = [get(s, path).to(device) for s in shards]
+        parts = [get(s, path).to(device)
+                 for s in shards[:pieces(d, len(shards))]]
         return parts[0] if d is None else torch.cat(parts, dim=d)
 
     return _map(f, dims)

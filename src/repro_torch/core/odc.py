@@ -20,6 +20,12 @@ equal to ``repro.core.odc.ring_gather`` / ``ring_scatter_accumulate``:
 (``repro_torch.kernels.odc_gather`` / ``odc_scatter``) run the same
 protocol on the card and take these functions as their plain versions.
 
+The chunked int8 wire format (``quantize_chunked`` /
+``dequantize_chunked``) and the compressed rings (``ring_gather_q8`` /
+``ring_scatter_accumulate_q8``) of the ``pipe-int8`` backend are the
+plain versions of ``repro_torch.kernels.quant``'s kernels, bitwise the
+reference's.
+
 ``prefetch_scan`` is the overlap schedule's layer loop
 (``repro.core.odc.prefetch_scan``): layer l+1's parameters are issued
 before layer l computes.
@@ -111,6 +117,138 @@ def ring_scatter_accumulate(ys: Sequence[torch.Tensor],
     for h in range(1, n):
         arrived = [acc[_left(order, pos, n, r)] for r in range(n)]
         acc = [arrived[r].to(ys[r].device) + blk(r, 1 + h) for r in range(n)]
+    return acc
+
+
+# ===========================================================================
+# chunked int8 wire format + compressed (q8) rings
+# ===========================================================================
+#: values per scale chunk: the wire format of the q8 kernels
+#: (1 int8 byte per value + one f32 scale per INT8_CHUNK values)
+INT8_CHUNK = 256
+#: 1/127 rounded to f32.  The reference writes the scale as
+#: ``absmax / 127.0``, and XLA compiles that division by a constant to a
+#: product with the constant's f32 reciprocal (every jitted path: the
+#: engine, the rings under shard_map, the Pallas kernels); only an eager
+#: call divides.  The port computes the compiled form.
+INV_127 = float.fromhex("0x1.020408p-7")
+
+
+def quantize_chunked(x: torch.Tensor, chunk: int = INT8_CHUNK):
+    """Symmetric per-chunk int8 quantization (``repro.core.odc.
+    quantize_chunked`` as XLA compiles it): ``x`` flattened, zero-padded
+    to a multiple of ``chunk``, each chunk scaled by ``absmax * INV_127``
+    (1.0 for an all-zero chunk, so zeros round-trip exactly), divided by
+    its scale (IEEE), rounded half to even and clamped to +-127.  Returns
+    ``(q, scales)``: int8 ``(n_chunks, chunk)`` and f32 ``(n_chunks, 1)``."""
+    if chunk <= 0:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    flat = x.reshape(-1).to(torch.float32)
+    pad = (-flat.shape[0]) % chunk
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    blocks = flat.reshape(-1, chunk)
+    absmax = blocks.abs().amax(dim=1, keepdim=True)
+    scales = torch.where(absmax > 0, absmax * INV_127,
+                         torch.ones_like(absmax))
+    q = torch.clamp(torch.round(blocks / scales), -127, 127).to(torch.int8)
+    return q, scales
+
+
+def dequantize_chunked(q: torch.Tensor, scales: torch.Tensor, shape,
+                       dtype=torch.float32) -> torch.Tensor:
+    """Invert ``quantize_chunked``: ``(n_chunks, chunk)`` int8 values and
+    their scales back to a tensor of ``shape`` (padding dropped)."""
+    flat = (q.to(torch.float32) * scales).reshape(-1)
+    size = 1
+    for s in shape:
+        size *= s
+    return flat[:size].reshape(shape).to(dtype)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` on f32 tensors with one rounding, as a fused
+    multiply-add computes it.  The reference's q8 scatter adds
+    ``dequantize_chunked(arrived) + own``, and XLA contracts that product
+    and add into one FMA on every jitted path (the ring under shard_map and
+    the Pallas kernel alike), so this is what it computes.  Here: the
+    product is exact in f64 (an int8 code times an f32 scale), the sum is
+    taken in f64 with its rounding error (TwoSum), and a sum that f64
+    rounded onto the midpoint of two f32 values is moved one f64 step
+    towards the exact sum before the f64 -> f32 rounding."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    f = s.float()
+    d = s - f.double()
+    up = torch.nextafter(f, torch.full_like(f, float("inf"))).double()
+    down = torch.nextafter(f, torch.full_like(f, float("-inf"))).double()
+    gap = torch.where(d > 0, up - f.double(), f.double() - down)
+    tie = (2 * d.abs() == gap) & (err != 0)
+    toward = torch.where(err > 0, float("inf"), float("-inf")).to(s)
+    s = torch.where(tie, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def ring_gather_q8(shards: Sequence[torch.Tensor],
+                   order: Optional[Sequence[int]] = None,
+                   chunk: int = INT8_CHUNK) -> List[torch.Tensor]:
+    """Compressed ODC gather (``repro.core.odc.ring_gather_q8``): each
+    shard is quantized ONCE at its source, its ``(q, scales)`` relayed
+    verbatim hop to hop and dequantized where it lands; a rank's own shard
+    lands exactly."""
+    n = len(shards)
+    pos = ring_positions(n, order)
+    c = shards[0].shape[0]
+    bufs = []
+    for r, x in enumerate(shards):
+        buf = torch.zeros((n * c,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        buf[r * c:(r + 1) * c] = x
+        bufs.append(buf)
+    cur = [quantize_chunked(x, chunk) for x in shards]
+    for i in range(n - 1):
+        cur = [cur[_left(order, pos, n, r)] for r in range(n)]
+        for r, x in enumerate(shards):
+            src = _at(order, n, pos[r] - i - 1)
+            q, s = cur[r]
+            bufs[r][src * c:(src + 1) * c] = dequantize_chunked(
+                q.to(x.device), s.to(x.device), x.shape, x.dtype)
+    return bufs
+
+
+def ring_scatter_accumulate_q8(ys: Sequence[torch.Tensor],
+                               order: Optional[Sequence[int]] = None,
+                               chunk: int = INT8_CHUNK) -> List[torch.Tensor]:
+    """Compressed ODC scatter-accumulate
+    (``repro.core.odc.ring_scatter_accumulate_q8``): partial sums
+    accumulate in f32, but every hop's payload is the chunked int8
+    encoding of the outgoing partial sum, requantized at each of the n-1
+    hops; the receiver adds ``dequant(arrived) + own`` in the plain ring's
+    hop order, as one fused multiply-add (``fma``)."""
+    n = len(ys)
+    pos = ring_positions(n, order)
+    c = ys[0].shape[0] // n
+
+    def blk(r, off):
+        j = _at(order, n, pos[r] - off)
+        return ys[r][j * c:(j + 1) * c]
+
+    acc = [blk(r, 1) for r in range(n)]
+    shape, dtype = acc[0].shape, acc[0].dtype
+    size = acc[0].numel()
+    for h in range(1, n):
+        wire = [quantize_chunked(a, chunk) for a in acc]
+        arrived = [wire[_left(order, pos, n, r)] for r in range(n)]
+        acc = []
+        for r, (q, s) in enumerate(arrived):
+            q, s = q.to(ys[r].device), s.to(ys[r].device)
+            codes = q.to(torch.float32).reshape(-1)[:size]
+            scales = s.expand(q.shape).reshape(-1)[:size]
+            own = blk(r, 1 + h).reshape(-1).to(torch.float32)
+            acc.append(fma(codes, scales, own).reshape(shape).to(dtype))
     return acc
 
 

@@ -22,6 +22,13 @@ batch rows, every rank holding a contiguous 1/cp slice of their
 (interleaved) sequence dim, and attention runs once per group through
 ``core.cp``'s ring.  Parameters stay sharded over all ranks, as under
 flat ODC.
+
+The two-tier backends (``comm='hier'``, ``'pipe'``, ``'pipe-int8'``): the
+ranks form ``inter`` groups (nodes, or pipeline stages) of n / inter
+ranks (``core.ranks.Tiers``), the norms shard over a group's ranks only
+(``fsdp.IntraDim``), and the backend moves every other leaf over both
+tiers; under ``pipe`` the ``1f1b`` schedule issues each rank's
+microbatches in the order of an ``inter``-stage pipeline.
 """
 from __future__ import annotations
 
@@ -32,8 +39,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import backend as B
-from repro_torch.core import fsdp, odc, overlap
-from repro_torch.core.ranks import RankGroup, cp_groups
+from repro_torch.core import fsdp, overlap
+from repro_torch.core.ranks import RankGroup, Tiers, cp_groups
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
@@ -46,12 +53,13 @@ _INDEX_KEYS = ("tokens", "targets")
 
 
 def _global_norm(grads: Sequence[dict], dims) -> torch.Tensor:
-    """The norm of the whole gradient tree from its shards: every sharded
-    leaf's shards count once each, a replicated leaf once."""
+    """The norm of the whole gradient tree from its shards: every distinct
+    piece of a leaf counts once (all shards of a sharded leaf, the first
+    group's of an ``IntraDim`` leaf, one copy of a replicated leaf)."""
     leaves = []
     for path in fsdp.tree_paths(dims):
         parts = [fsdp.get(g, path) for g in grads]
-        leaves += parts[:1] if fsdp.get(dims, path) is None else parts
+        leaves += parts[:fsdp.pieces(fsdp.get(dims, path), len(parts))]
     return global_norm(leaves)
 
 
@@ -68,6 +76,11 @@ class Trainer:
     device_profile: object = None
     #: the cp group size (``comm='cp'`` only)
     cp: int = 1
+    #: the two-tier backends: nodes (``hier``) or pipeline stages
+    #: (``pipe``, ``pipe-int8``), each of ranks.n / inter ranks
+    inter: int = 2
+    #: schedule '1f1b': the interleaved (halved-warmup) order
+    pipe_interleave: bool = False
 
     def __post_init__(self):
         self.backend, self.schedule = B.resolve(self.comm, self.schedule)
@@ -76,9 +89,14 @@ class Trainer:
             raise ValueError(f"cp={self.cp} needs comm 'cp', not "
                              f"{self.backend.name!r}")
         self.groups = cp_groups(n, self.cp)
-        self.order = odc.ring_order(n, self.device_profile)
+        self.tiers = None
+        if self.backend.two_tier:
+            self.tiers = Tiers.split(n, self.inter)
+            self.backend = self.backend.on(self.tiers)
+        self.order = self.backend.ring_order(n, self.device_profile)
         shapes = T.param_shapes(self.cfg)
-        self.dims = fsdp.leaf_dims(shapes, n)
+        self.dims = fsdp.leaf_dims(
+            shapes, n, self.tiers.intra if self.tiers else None)
         self.chain = None
         if self.schedule == "overlap" and self.backend.chained:
             self.chain = overlap.ChainedLayers(
@@ -94,12 +112,14 @@ class Trainer:
 
         self._grad_core = B.build_schedule_grad(
             self.schedule, loss_ranks=loss_ranks, backend=self.backend,
-            dims=self.dims, order=self.order, chain=self.chain, cp=self.cp)
+            dims=self.dims, order=self.order, chain=self.chain, cp=self.cp,
+            pipe_stages=self.inter if self.backend.implied_schedule == "1f1b"
+            else 1, pipe_interleave=self.pipe_interleave)
 
     # -- state --------------------------------------------------------------
     def init_state(self, params):
         """(shards, optimizer states) of a full parameter tree."""
-        shards = fsdp.shard_params(params, self.ranks)
+        shards = fsdp.shard_params(params, self.ranks, self.dims)
         return shards, [adamw_init(s) for s in shards]
 
     def unshard(self, shards, device="cpu"):

@@ -49,6 +49,14 @@ SIGNATURES = {
                     "repro_odc_scatter_capacity": [_I, _PI],
                     "repro_odc_scatter_layers": _SCATTER_LAYERS,
                     "repro_odc_scatter_layers_capacity": [_I, _PI]},
+    "quant": {"repro_quantize": [_P, _P, _P, _L, _P],
+              "repro_dequantize": [_P, _P, _P, _L, _P]},
+    # the q8 gather: the ring's arguments, then the ranks' scales in and
+    # out, then the stream
+    "odc_q8": {"repro_odc_gather_q8": _RING[:-1] + [_P, _P, _P],
+               "repro_odc_gather_q8_capacity": [_PI],
+               "repro_odc_scatter_q8": _RING,
+               "repro_odc_scatter_q8_capacity": [_PI]},
 }
 
 _libs: dict = {}

@@ -47,8 +47,8 @@ def check(tensors: Sequence[torch.Tensor], what: str) -> torch.device:
         if t.device != t0.device:
             raise NotImplementedError(
                 f"{what}: ranks on {t0.device} and {t.device}; rings across "
-                f"cards are not yet ported (ROADMAP §0), every rank must lie "
-                f"on one card")
+                f"cards are not yet ported (ROADMAP.md queue 1 item 9), "
+                f"every rank must lie on one card")
         if t.dtype != t0.dtype or t.shape != t0.shape:
             raise ValueError(f"{what}: every rank needs the same shape and "
                              f"dtype, got {tuple(t0.shape)} {t0.dtype} and "

@@ -25,24 +25,6 @@
 // use the copy engines or TMA, and run across cards with peer pointers.
 #include "odc_ring.cuh"
 
-// Copy nbytes; `staged` marks a source in a staging slot written by
-// another block, read through L2 only.
-__device__ __forceinline__ void odc_copy(unsigned char* dst,
-                                         const unsigned char* src,
-                                         long long nbytes, bool staged) {
-  long long done = 0;
-  if (odc_aligned16(dst, src, dst)) {
-    const long long nv = nbytes >> 4;
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (long long i = threadIdx.x; i < nv; i += blockDim.x)
-      __stcg(d + i, staged ? __ldcg(s + i) : s[i]);
-    done = nv << 4;
-  }
-  for (long long i = done + threadIdx.x; i < nbytes; i += blockDim.x)
-    dst[i] = staged ? __ldcg(src + i) : src[i];
-}
-
 __global__ void __launch_bounds__(ODC_THREADS)
 odc_gather_kernel(const __grid_constant__ OdcArgs a, int elem_bytes) {
   const int n = a.n;

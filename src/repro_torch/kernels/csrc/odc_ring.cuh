@@ -1,5 +1,6 @@
-// Shared pieces of the ODC ring kernels (odc_gather.cu, odc_scatter.cu):
-// the per-call argument block, the flag protocol and the copy helpers.
+// Shared pieces of the ODC ring kernels (odc_gather.cu, odc_scatter.cu,
+// odc_q8.cu): the per-call argument block, the flag protocol and the copy
+// helpers.
 //
 // Protocol (one-sided push, as in the TPU kernels): every rank owns two
 // staging slots.  A hop writes its payload into the right neighbour's slot,
@@ -97,6 +98,24 @@ __device__ __forceinline__ unsigned odc_tag(unsigned long long epoch,
 __device__ __forceinline__ bool odc_aligned16(const void* a, const void* b,
                                               const void* c) {
   return ((((uintptr_t)a) | ((uintptr_t)b) | ((uintptr_t)c)) & 15u) == 0;
+}
+
+// Copy nbytes; `staged` marks a source in a staging slot written by
+// another block, read through L2 only.
+__device__ __forceinline__ void odc_copy(unsigned char* dst,
+                                         const unsigned char* src,
+                                         long long nbytes, bool staged) {
+  long long done = 0;
+  if (odc_aligned16(dst, src, dst)) {
+    const long long nv = nbytes >> 4;
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    for (long long i = threadIdx.x; i < nv; i += blockDim.x)
+      __stcg(d + i, staged ? __ldcg(s + i) : s[i]);
+    done = nv << 4;
+  }
+  for (long long i = done + threadIdx.x; i < nbytes; i += blockDim.x)
+    dst[i] = staged ? __ldcg(src + i) : src[i];
 }
 
 // The element range [lo, hi) of c that this block owns.

@@ -7,8 +7,11 @@ paper's ODC; ``--comm collective --schedule layer``, the FSDP baseline;
 ``--comm odc-overlap``, or ``--schedule overlap``, the prefetch schedule;
 ``--comm cp --cp N``, context parallelism: data x N ranks in ring groups of
 N that sequence-shard their rows and attend through ring attention over
-the hand-written state-sweep kernel, best with ``--strategy lb_token``)
--> sharded AdamW -> checkpoints (``--ckpt-dir``, ``--save-every``,
+the hand-written state-sweep kernel, best with ``--strategy lb_token``;
+``--comm hier --nodes N``, two-tier ODC over N nodes of world / N ranks;
+``--comm pipe`` / ``pipe-int8 --pipe-stages S``, the same two tiers as S
+stages under the 1F1B schedule, pipe-int8 with the inter tier on the
+chunked int8 wire) -> sharded AdamW -> checkpoints (``--ckpt-dir``, ``--save-every``,
 ``--resume``).  One process holds every rank; on one card every rank lies
 on it, so ``--data-axis 2`` trains with two ranks on one H100 and each
 ODC ring is one launch of a hand-written CUDA kernel (under the overlap
@@ -30,6 +33,15 @@ Examples:
   ... --steps 3 --ckpt-dir /tmp/ckpt --resume   # continues at step 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen-1.5b \\
       --reduced --device cpu --comm cp --cp 2 --strategy lb_token --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen-1.5b \\
+      --reduced --device cpu --data-axis 4 --comm pipe-int8 --pipe-stages 2
+
+Where the flags mean something else than in ``repro.launch.train``: the
+JAX driver lays its mesh over every host device and ignores
+``--data-axis`` under cp, hier and pipe; here every rank lies on the one
+card, so ``--data-axis`` sets the ranks: the world (nodes x devices, or
+stages x data) under hier and pipe, and the cp groups (world = data x
+cp) under cp.
 """
 from __future__ import annotations
 
@@ -47,7 +59,8 @@ from repro_torch.core.ranks import RankGroup
 from repro_torch.core.train_step import Trainer
 from repro_torch.data.loader import SyntheticSFTLoader
 from repro_torch.data.packing import build_minibatch
-from repro_torch.kernels import flash_attention, odc_gather, odc_scatter
+from repro_torch.kernels import flash_attention, odc_gather, odc_scatter, \
+    quant
 from repro_torch.models import transformer as T
 from repro_torch.obs import log as obs_log
 from repro_torch.optim.adamw import AdamWConfig
@@ -59,8 +72,12 @@ KERNELS = {"flash_attention": (flash_attention, "launches"),
            "odc_gather": (odc_gather, "launches"),
            "odc_scatter_accumulate": (odc_scatter, "launches"),
            "odc_gather_layers": (odc_gather, "layers_launches"),
-           "odc_scatter_accumulate_layers": (odc_scatter, "layers_launches")}
-_NOT_PORTED_FLAGS = ("trace", "metrics", "config", "pipe_interleave")
+           "odc_scatter_accumulate_layers": (odc_scatter, "layers_launches"),
+           "quantize_int8": (quant, "quantize_launches"),
+           "dequantize_int8": (quant, "dequantize_launches"),
+           "odc_gather_q8": (quant, "gather_launches"),
+           "odc_scatter_accumulate_q8": (quant, "scatter_launches")}
+_NOT_PORTED_FLAGS = ("trace", "metrics", "config")
 
 
 def reset_launches():
@@ -89,17 +106,23 @@ def parse_args(argv=None):
                          "'minibatch' (once per minibatch, ODC) or "
                          "'overlap' (per microbatch, layer l+1 issued under "
                          "layer l; with a ring backend the chained ring "
-                         "kernels); '1f1b' is not yet ported")
+                         "kernels) or '1f1b' ('minibatch' in the 1F1B issue "
+                         "order; implied by --comm pipe/pipe-int8)")
     ap.add_argument("--comm", default="odc",
-                    choices=backends.backend_names() + backends.NOT_PORTED,
+                    choices=backends.backend_names(),
                     help="how each gather/scatter moves bytes: 'collective' "
                          "(fused all-gather / reduce-scatter), 'odc' (p2p "
                          "ring, the hand-written CUDA kernels on the card), "
                          "'odc-overlap' (alias 'overlap': odc with the "
                          "overlap schedule implied) or 'cp' (alias "
                          "'cp-ring': odc over data x cp ranks with ring "
-                         "attention inside each cp group, see --cp); the "
-                         "other JAX backends are not yet ported")
+                         "attention inside each cp group, see --cp), "
+                         "'hier' (intra-node concatenation + inter-node "
+                         "ring over nodes x devices ranks, see --nodes), "
+                         "'pipe' / 'pipe-int8' (hier's transport over "
+                         "stages x data ranks under the 1F1B schedule, see "
+                         "--pipe-stages; -int8 sends the inter tier as "
+                         "chunked int8)")
     ap.add_argument("--device-profile", default="none",
                     choices=("none", "homogeneous", "one_slow", "bimodal",
                              "uniform"),
@@ -119,10 +142,13 @@ def parse_args(argv=None):
     ap.add_argument("--cosine", action="store_true",
                     help="cosine decay to 10%% over --steps (with warmup)")
     ap.add_argument("--data-axis", type=int, default=0,
-                    help="ranks (with --comm cp: cp groups), all on the "
-                         "current card; 0 = one per visible device, "
-                         "refused on more than one card (ranks on "
-                         "separate cards are not yet ported)")
+                    help="ranks, all on the current card: the world (with "
+                         "--comm hier: nodes x devices; with pipe: stages "
+                         "x data), or with --comm cp the cp groups (world "
+                         "= data x cp); the JAX driver instead takes every "
+                         "host device under cp, hier and pipe; 0 = one per "
+                         "visible device, refused on more than one card "
+                         "(ranks on separate cards are not yet ported)")
     ap.add_argument("--cp", type=int, default=None,
                     help="with --comm cp/cp-ring: the context-parallel "
                          "degree (default 2); each ring group of cp "
@@ -144,29 +170,42 @@ def parse_args(argv=None):
                          "loader replays the skipped steps' data stream)")
     for flag in ("--trace", "--metrics", "--config"):
         ap.add_argument(flag, default="", help="not yet ported")
+    ap.add_argument("--nodes", type=int, default=2,
+                    help="with --comm hier: the nodes, each of "
+                         "world / nodes ranks (devices)")
+    ap.add_argument("--pipe-stages", type=int, default=2,
+                    help="with --comm pipe/pipe-int8: the pipeline stages, "
+                         "each of world / stages ranks; also the depth of "
+                         "the 1F1B order")
     ap.add_argument("--pipe-interleave", action="store_true",
-                    help="not yet ported")
-    for flag in ("--nodes", "--pipe-stages"):
-        ap.add_argument(flag, type=int, default=0, help="not yet ported")
+                    help="with the 1f1b schedule: the interleaved order "
+                         "(halved warmup)")
     obs_log.add_log_args(ap)
     args = ap.parse_args(argv)
-    for flag in _NOT_PORTED_FLAGS + ("nodes", "pipe_stages"):
+    for flag in _NOT_PORTED_FLAGS:
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} is not yet ported to "
-                     f"repro_torch (ROADMAP §0); use repro.launch.train")
+                     f"repro_torch (ROADMAP.md queue 1); use "
+                     f"repro.launch.train")
     if args.model_axis != 1:
         ap.error("--model-axis > 1 is not yet ported to repro_torch "
-                 "(ROADMAP §0)")
-    if args.comm in backends.NOT_PORTED:
-        ap.error(f"--comm {args.comm} is not yet ported to repro_torch "
-                 f"(ROADMAP §0)")
-    if args.schedule == "1f1b":
-        ap.error(f"--schedule {args.schedule} is not yet ported to "
-                 f"repro_torch (ROADMAP §0)")
-    if backends.get_backend(args.comm) is backends.CP:
-        if args.schedule == "overlap":
-            ap.error("--comm cp under --schedule overlap is not yet ported "
-                     "to repro_torch (ROADMAP §0)")
+                 "(ROADMAP.md queue 1)")
+    backend = backends.get_backend(args.comm)
+    schedule = backend.implied_schedule or args.schedule
+    if schedule == "overlap" and (backend is backends.CP
+                                  or backend.two_tier):
+        ap.error(f"--comm {backend.name} under --schedule overlap is not "
+                 f"yet ported to repro_torch (ROADMAP.md queue 1)")
+    args.inter = 2
+    if backend.two_tier:
+        args.inter = (args.nodes if backend.name == "hier"
+                      else args.pipe_stages)
+        what = "--nodes" if backend.name == "hier" else "--pipe-stages"
+        if args.inter < 1 or (args.data_axis and args.data_axis % args.inter):
+            ap.error(f"--comm {backend.name}: {args.data_axis or 'the'} "
+                     f"ranks do not split into {what} {args.inter} groups "
+                     f"of equal size")
+    if backend is backends.CP:
         args.cp = 2 if args.cp is None else args.cp
         if args.cp < 1:
             ap.error("--cp must be at least 1")
@@ -182,9 +221,11 @@ def _sync(ranks):
         torch.cuda.synchronize(ranks.devices[0])
 
 
-def run(args, *, return_params: bool = False) -> dict:
+def run(args, *, return_params: bool = False, cfg=None) -> dict:
     """Train as the flags say; returns the run's summary (with the final
-    parameters, unsharded on the CPU, under "params" if asked)."""
+    parameters, unsharded on the CPU, under "params" if asked).  ``cfg``:
+    a model configuration to train in place of ``--arch``'s (a full-width
+    model cut in depth, for one)."""
     out = obs_log.from_args("train", args)
     if args.resume and not args.ckpt_dir:
         raise SystemExit("--resume needs --ckpt-dir")
@@ -193,7 +234,9 @@ def run(args, *, return_params: bool = False) -> dict:
         ranks = RankGroup.make(ranks.n * args.cp, args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg is None:
+        cfg = get_reduced(args.arch) if args.reduced \
+            else get_config(args.arch)
     world = ranks.n
     profile = None
     if args.device_profile != "none":
@@ -212,12 +255,16 @@ def run(args, *, return_params: bool = False) -> dict:
     trainer = Trainer(cfg, ranks, comm=args.comm, schedule=args.schedule,
                       opt_cfg=AdamWConfig(lr=args.lr),
                       lr_schedule=lr_schedule, device_profile=profile,
-                      cp=args.cp)
+                      cp=args.cp, inter=args.inter,
+                      pipe_interleave=args.pipe_interleave)
     comm, schedule = trainer.backend.name, trainer.schedule
+    tiers = trainer.tiers
     out.info(f"{cfg.name} ({cfg.family}) on {world} ranks "
              f"{[str(d) for d in ranks.devices]}"
              + (f" (data {world // args.cp} x cp {args.cp})"
                 if comm == "cp" else "")
+             + (f" ({'nodes' if comm == 'hier' else 'stages'} "
+                f"{tiers.inter} x {tiers.intra})" if tiers else "")
              + f" strategy={args.strategy} schedule={schedule} comm={comm}")
 
     start_step = 0
@@ -299,6 +346,7 @@ def run(args, *, return_params: bool = False) -> dict:
                "launches": launches, "world": world,
                "num_layers": cfg.num_layers, "dims": trainer.dims,
                "comm": comm, "schedule": schedule, "cp": args.cp,
+               "tiers": (tiers.inter, tiers.intra) if tiers else None,
                "start_step": start_step, "saved": saved,
                "tokens": tokens_done, "seconds": dt,
                "tok_s": tokens_done / dt if dt > 0 else 0.0,

@@ -28,7 +28,7 @@ def _require_dense(cfg: ModelConfig):
     if cfg.family != "dense" or cfg.num_experts:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"yet (ROADMAP.md, queue 1 item 7); this slice runs the dense "
+            f"yet (ROADMAP.md, queue 1 item 2); this slice runs the dense "
             f"family only")
 
 

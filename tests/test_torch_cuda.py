@@ -429,3 +429,135 @@ def test_reduced_cp_train_steps_on_card_match_cpu(cuda):
             assert fa.state_launches > before
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-5 * abs(b), (losses["cuda"], losses["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# the int8 codec and the compressed (q8) rings
+# ---------------------------------------------------------------------------
+def _codec_input(dev, size, seed):
+    """Values of mixed scales, with an all-zero chunk, exact ties (a chunk
+    whose absmax is 127, so scale 1 and x.5 is a tie) and a chunk whose
+    extremes land on +-127."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(size, generator=g, device=dev)
+    x *= 10.0 ** torch.randint(-3, 4, (size,), generator=g, device=dev)
+    if size >= 3 * 256:
+        x[:256] = 0.0
+        x[256:512] = torch.arange(256, device=dev) % 9 - 4 + 0.5
+        x[256] = 127.0
+        x[512:768] = torch.linspace(-3.0, 3.0, 256, device=dev)
+    return x
+
+
+@pytest.mark.parametrize("size", [1, 255, 3 * 256, 10_000, 2 ** 20 + 3])
+def test_codec_kernels_match_plain(cuda, size):
+    from repro_torch.core import odc
+    from repro_torch.kernels import quant as Q
+
+    x = _codec_input(cuda, size, size)
+    before = (Q.quantize_launches, Q.dequantize_launches)
+    q, s = Q.quantize_int8(x)
+    y = Q.dequantize_int8(q, s, x.shape)
+    torch.cuda.synchronize()
+    assert (Q.quantize_launches, Q.dequantize_launches) == \
+        (before[0] + 1, before[1] + 1)
+    qr, sr = odc.quantize_chunked(x)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+    assert torch.equal(y, odc.dequantize_chunked(qr, sr, x.shape))
+    assert int(q.min()) >= -127
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+@pytest.mark.parametrize("ordered", [False, True])
+def test_q8_ring_kernels_match_plain_rings(cuda, n, ordered):
+    """Bitwise: the gather relays the codes, and the scatter requantizes
+    and adds in the plain ring's hop order."""
+    from repro_torch.core import odc
+    from repro_torch.kernels import quant as Q
+
+    order = list(reversed(range(n))) if ordered else None
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    for c in (1, 1000, 4099):
+        xs = [torch.randn(c, 3, generator=gen, device=cuda)
+              for _ in range(n)]
+        before = Q.gather_launches
+        out = Q.odc_gather_q8(xs, order)
+        torch.cuda.synchronize()
+        assert Q.gather_launches == before + 1
+        ref = odc.ring_gather_q8(xs, order)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+        ys = [torch.randn(n * c, 3, generator=gen, device=cuda)
+              for _ in range(n)]
+        before = Q.scatter_launches
+        out = Q.odc_scatter_accumulate_q8(ys, order)
+        torch.cuda.synchronize()
+        assert Q.scatter_launches == before + 1
+        ref = odc.ring_scatter_accumulate_q8(ys, order)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+def test_q8_rings_refuse_a_grid_that_cannot_be_resident(cuda):
+    from repro_torch.kernels import quant as Q
+
+    xs = [torch.ones(512, device=cuda) for _ in range(4)]
+    ys = [torch.ones(2048, device=cuda) for _ in range(4)]
+    for fn, args, attr in ((Q.odc_gather_q8, xs, "gather_launches"),
+                           (Q.odc_scatter_accumulate_q8, ys,
+                            "scatter_launches")):
+        before = getattr(Q, attr)
+        with pytest.raises(RuntimeError, match="resident"):
+            fn(args, blocks_per_rank=1 << 20)
+        assert getattr(Q, attr) == before
+    with pytest.raises(ValueError, match="int8"):
+        Q.dequantize_int8(torch.ones(2, 256, device=cuda), torch.ones(
+            2, 1, device=cuda), (512,))
+    out = Q.odc_gather_q8(xs)  # the card is usable after a refusal
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, torch.ones(2048, device=cuda)) for o in out)
+
+
+@pytest.mark.parametrize("comm", ["hier", "pipe", "pipe-int8"])
+def test_reduced_two_tier_train_steps_on_card_match_cpu(cuda, comm):
+    """Two reduced train steps on a 2 x 2 layout on the card (ring and q8
+    kernels) against the same steps on the CPU (plain versions): losses
+    within 1e-5 relative, as above; pipe-int8 quantizes the same gathered
+    values on both, so its codes differ only where f32 rounding of the
+    step-1 parameters moves a value across a rounding boundary."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.ranks import RankGroup
+    from repro_torch.core.train_step import Trainer
+    from repro_torch.data.loader import SyntheticSFTLoader
+    from repro_torch.data.packing import build_minibatch
+    from repro_torch.kernels import odc_gather as G
+    from repro_torch.kernels import quant as Q
+    from repro_torch.models import transformer as T
+
+    cfg = get_reduced("qwen-1.5b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    loader = SyntheticSFTLoader("longalign", vocab_size=cfg.vocab_size,
+                                world_size=4, minibatch_per_device=2,
+                                max_tokens=128, max_len=120, seed=0)
+    steps = list(loader.steps(2))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, RankGroup.make(4, dev), comm=comm, inter=2)
+        shards, opt = tr.init_state(_to(params, dev))
+        before = (G.launches, Q.gather_launches, Q.scatter_launches,
+                  Q.quantize_launches, Q.dequantize_launches)
+        losses[dev] = []
+        for sd in steps:
+            batch = build_minibatch(sd["plan"], sd["sample_tokens"], 128)
+            counts = [len(a) for a in sd["plan"].assignments]
+            shards, opt, m = tr.step(shards, opt, batch, counts)
+            losses[dev].append(float(m["loss"]))
+        after = (G.launches, Q.gather_launches, Q.scatter_launches,
+                 Q.quantize_launches, Q.dequantize_launches)
+        moved = [a > b for a, b in zip(after, before)]
+        if dev == "cuda":
+            assert moved == ([False, True, True, True, True]
+                             if comm == "pipe-int8" else
+                             [True, False, False, False, False])
+        else:
+            assert not any(moved)
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-5 * abs(b), (losses["cuda"], losses["cpu"])

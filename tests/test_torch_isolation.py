@@ -29,6 +29,7 @@ def _forbidden(name: str) -> bool:
 REQUIRED = (
     "kernels/flash_attention.py", "kernels/odc_gather.py",
     "kernels/odc_scatter.py", "kernels/_ring.py", "kernels/_build.py",
+    "kernels/quant.py", "sim/timeline.py",
     "core/odc.py", "core/ranks.py", "core/fsdp.py", "core/backend.py",
     "core/train_step.py", "core/overlap.py", "core/cp.py",
     "checkpoint/io.py", "optim/adamw.py", "optim/schedules.py",

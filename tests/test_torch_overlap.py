@@ -14,7 +14,7 @@
   schedule.
 * Three train steps of odc x overlap and collective x overlap against
   ``gspmd.make_train_step(schedule='overlap', comm=...)``: losses within
-  ``test_torch_train``'s 1e-5 relative, and the final parameters within
+  ``test_torch_train_engine``'s 1e-5 relative, and the final parameters within
   2 * lr * steps per element, the most that AdamW's update can move an
   element whose gradient sign differs between XLA's summation order and
   PyTorch's (a wrong gradient moves whole leaves by more).
@@ -64,6 +64,16 @@ STEPS = 3
 MAX_TOKENS = 128
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread per test: the suite runs several workers on the
+    CPU's cores, and these small tensors gain nothing from more."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _run(fn, x, n):
@@ -147,9 +157,11 @@ def test_resolve_applies_the_implied_schedule():
     assert B.resolve("odc", "overlap") == (B.ODC, "overlap")
     assert B.resolve("collective", "overlap") == (B.COLLECTIVE, "overlap")
     assert B.resolve("odc", "minibatch") == (B.ODC, "minibatch")
-    assert "odc-overlap" not in B.NOT_PORTED
-    with pytest.raises(NotImplementedError, match="1f1b"):
-        B.resolve("odc", "1f1b")
+    assert "odc-overlap" in B.backend_names()
+    assert B.resolve("odc", "1f1b") == (B.ODC, "1f1b")
+    for name in ("pipe", "pipe-int8"):
+        for schedule in ("minibatch", "layer", "overlap", "1f1b"):
+            assert B.resolve(name, schedule)[1] == "1f1b"
 
 
 def test_layer_packing_round_trips():
