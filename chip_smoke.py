@@ -14,7 +14,13 @@ and pipe-int8 as 2 nodes or stages x 1), trains pipe-int8 on a 2 x 2
 layout at full width and reduced depth (22 layers), profiles a train
 step of the first, the third and the cp run, saves and resumes a reduced
 overlap run, and times each kernel against its bound and its library
-yardstick.
+yardstick.  The ssm family: the Mamba2 SSD scan kernel against its plain
+version (forward at mamba2's serve and train shapes and three more, the
+gradient route at the train shape), mamba2-2.7b served at full width and
+depth (its prefill logits against the plain scan route), and trained at
+full width and 40 of its 64 layers with two ranks as collective x layer
+and ODC x minibatch (step 0 against the plain scan route, one profiled
+step).
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -142,6 +148,42 @@ INT8_LOSS_GAP = 1e-2
 # allocated and 25.07 GiB reserved but free (the allocator's fragments
 # after the earlier runs)
 PIPE4 = dict(data_axis=4, layers=22)
+
+# The ssm family: mamba2-2.7b at its published widths, fp32.
+MAMBA = "mamba2-2.7b"
+# SSD scan kernel vs ssd_scan_plain, |diff| <= tol * (1 + |plain|).  The
+# reference's own kernel-vs-oracle tolerances (tests/test_kernels.py:198)
+# are 1e-4 and 5e-2; tightened, since both sides sum the chunk's decay
+# alike (decay_cumsum: f64, rounded once) and differ only in the order of
+# the f32 sums over Q and n: float32 read 3.4e-7 on the H100 (and 9.7e-5
+# before the f64 decay sum, when a CUDA cumsum's f32 parallel scan fed the
+# plain side), so 1e-5; bfloat16 y is one bf16 rounding of nearly equal
+# f32 values on each side, at most one step, 2**-7 of |y|: 1e-2
+SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# The scan's gradient route (its backward differentiates ssd_chunked)
+# against autograd through the plain version: two f32 algorithms.  Each is
+# within 1.31e-3 of the float64 gradient at (1, 512, 4, 64, 1, 128) (dA;
+# measured on the CPU), since the chunk's cumulative decay reaches |acum|
+# ~ 180 at Q = 256 and exp() turns its f32 rounding into a relative
+# error; so the two may differ by twice that.  GRAD_TOL's 1e-4 is too
+# tight: the card read 6.79e-4 at that shape, and 5.64e-4 (dA) at the
+# train shape
+SSD_GRAD_TOL = 2e-3
+# (b, s, h, p, g, n, Q, padded tail): mamba2's serve prefill and train
+# shapes, the serve shape with a padded tail (dt = 0), and the reference
+# test's g > 1 and zamba2-like cases (tests/test_kernels.py:184-188)
+SSD_CASES = {
+    "serve prefill": (8, 512, 80, 64, 1, 128, 256, 0),
+    "train": (1, 4096, 80, 64, 1, 128, 256, 0),
+    "padded tail": (8, 512, 80, 64, 1, 128, 256, 40),
+    "g=2": (1, 128, 8, 32, 2, 16, 32, 0),
+    "zamba2-like": (1, 64, 2, 64, 2, 64, 64, 0),
+}
+# The mamba2 train runs: TRAIN's settings at full width, depth cut.  Two
+# ranks on one card hold about 28 bytes a parameter (the shards, m and v;
+# each rank's gathered tree and accumulated gradient): 70.5 GiB of the
+# card's 79.2 at 64 layers, 45.3 GiB at 40
+MAMBA_LAYERS = 40
 
 
 def fail(msg: str):
@@ -959,6 +1001,262 @@ def phase_ring_refusal():
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: the Mamba2 SSD scan kernel (ssm family) against its plain
+# version, and its gradient route
+# ---------------------------------------------------------------------------
+def _ssd_inputs(b, s, h, p, g, n, pad, dtype, seed):
+    """Scan inputs as ``mamba2_apply`` makes them (dt a softplus, A < 0);
+    the last ``pad`` positions a padded tail (x, B, C zero, dt 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    x = rnd(b, s, h, p) * 0.5
+    dt = torch.nn.functional.softplus(rnd(b, s, h))
+    A = -torch.exp(rnd(h) * 0.3)
+    Bm, Cm = rnd(b, s, g, n) * 0.5, rnd(b, s, g, n) * 0.5
+    if pad:
+        for t in (x, dt, Bm, Cm):
+            t[:, s - pad:] = 0
+    return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype)
+
+
+def _rel_err(out, ref):
+    """(max |diff|, max |diff| / (1 + |ref|)) in f32."""
+    d = (out.float() - ref.float()).abs()
+    return float(d.max()), float((d / (1 + ref.float().abs())).max())
+
+
+def phase_ssd_kernel():
+    from repro_torch.kernels import ssd_scan as K
+
+    bad = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (name, (b, s, h, p, g, n, Q, pad)) in enumerate(
+                SSD_CASES.items()):
+            ins = _ssd_inputs(b, s, h, p, g, n, pad, dtype, seed=i)
+            before = K.launches
+            y, st = K.ssd_scan(*ins, Q)
+            torch.cuda.synchronize()
+            launched = K.launches - before
+            ry, rst = K.ssd_scan_plain(*ins, Q)
+            (ya, yr), (sa, sr) = _rel_err(y, ry), _rel_err(st, rst)
+            finite = bool(torch.isfinite(y.float()).all()
+                          and torch.isfinite(st).all())
+            ok = (finite and launched == 1 and y.dtype == dtype
+                  and max(yr, sr) <= SSD_TOL[dtype])
+            tag = str(dtype).replace("torch.", "")
+            log(f"ssd_scan vs plain [{tag:8s}] {name:13s} (b, s, h, p, g, n, "
+                f"Q) = {(b, s, h, p, g, n, Q)}{f', tail {pad}' if pad else ''}"
+                f": y max|diff| {ya:.3e} ({yr:.3e} of 1+|plain|), state "
+                f"{sa:.3e} ({sr:.3e}) (tol {SSD_TOL[dtype]:g}), launches "
+                f"{launched} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(f"{name} {tag}")
+            del ins, y, st, ry, rst
+    if bad:
+        fail(f"ssd_scan disagrees with its plain version: {bad}")
+
+
+def phase_ssd_grad():
+    """The gradient route (kernel forward, ``ssd_chunked`` backward) at the
+    train shape against autograd through the plain version, every input,
+    |diff| <= SSD_GRAD_TOL * (1 + |plain|)."""
+    from repro_torch.kernels import ssd_scan as K
+
+    b, s, h, p, g, n, Q, _ = SSD_CASES["train"]
+    ins = _ssd_inputs(b, s, h, p, g, n, 0, torch.float32, seed=7)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    gy = torch.randn(ins[0].shape, generator=gen, device="cuda")
+    gs = torch.randn((b, h, p, n), generator=gen, device="cuda")
+    grads = []
+    for fn in (K.ssd_scan, K.ssd_scan_plain):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        y, st = fn(*leaves, Q)
+        torch.autograd.backward([y, st], [gy, gs])
+        grads.append([t.grad for t in leaves])
+        del y, st, leaves
+    errs = {name: _rel_err(a, r) for name, a, r in
+            zip(("x", "dt", "A", "B", "C"), *grads)}
+    finite = all(bool(torch.isfinite(a).all()) for a in grads[0])
+    worst = max(r for _, r in errs.values())
+    log(f"ssd_scan gradient route vs autograd through the plain version at "
+        f"the train shape: " + ", ".join(
+            f"d{k} max|diff| {a:.3e} ({r:.3e} of 1+|plain|)"
+            for k, (a, r) in errs.items())
+        + f" (tol {SSD_GRAD_TOL:g}), finite {finite}")
+    if not finite or worst > SSD_GRAD_TOL:
+        fail("ssd_scan: the gradient route disagrees with the plain route")
+    del grads
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 4m: serve mamba2-2.7b at full width and depth, then its wave
+# prefill on the plain scan route
+# ---------------------------------------------------------------------------
+def phase_mamba_serve() -> dict:
+    import gc
+
+    from repro_torch.kernels import ssd_scan as K
+    from repro_torch.launch import serve, train
+    from repro_torch.models import ssm
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = serve.parse_args([
+        "--arch", MAMBA, "--seed", str(SEED), "--device", "cuda", "--dtype",
+        "float32", "--batch", str(WAVE["batch"]), "--prompt-len",
+        str(WAVE["prompt_len"]), "--gen", str(WAVE["gen"])])
+    torch.cuda.reset_peak_memory_stats()
+    train.reset_launches()
+    summary = serve.run(args)
+    torch.cuda.synchronize()
+    got = train.read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    L = summary["num_layers"]
+    want = L * summary["prefill_calls"]
+    others = {k: v for k, v in got.items() if k != "ssd_scan" and v}
+    log(f"serve {MAMBA} wave ({L} layers): prefill "
+        f"{summary['prefill_tok_s']:.1f} tok/s, decode "
+        f"{summary['decode_tok_s']:.1f} tok/s, ssd_scan launches "
+        f"{got['ssd_scan']} (want {L} layers x {summary['prefill_calls']} "
+        f"prefill = {want}; decode is the recurrent step), other launches "
+        f"{others or 0}, peak memory {peak / 2 ** 30:.2f} GiB, first ids "
+        f"{summary['first_ids'][:8]}")
+    if L != 64 or got["ssd_scan"] != want or want == 0:
+        fail(f"serve {MAMBA}: {got['ssd_scan']} scan launches over {L} "
+             f"layers, want {want} over 64")
+    if others:
+        fail(f"serve {MAMBA}: launched {others}")
+    if not summary["ids_in_vocab"]:
+        fail(f"serve {MAMBA}: generated ids outside the vocabulary")
+
+    # the wave prefill again, on the kernel route and on the plain route
+    cfg, params, tokens = serve.build(args)
+    engine = serve.make_engine(cfg, args)
+    batch = engine.prompt_batch(tokens)
+    B, S = tokens.shape
+    kern, cache = engine.prefill(params, batch,
+                                 engine.init_cache(B, S + args.gen))
+    prev = ssm.set_ssd_impl(ssm.ssd_chunked)
+    try:
+        before = K.launches
+        plain, pcache = engine.prefill(params, batch,
+                                       engine.init_cache(B, S + args.gen))
+        torch.cuda.synchronize()
+        plain_launches = K.launches - before
+    finally:
+        ssm.set_ssd_impl(prev)
+    diff = float((kern[:, -1] - plain[:, -1]).abs().max())
+    state = _rel_err(cache["ssm"], pcache["ssm"])
+    finite = bool(torch.isfinite(kern).all())
+    log(f"{MAMBA} wave prefill last-position logits "
+        f"{tuple(kern[:, -1].shape)}, kernel vs plain scan route max|diff| "
+        f"{diff:.3e} (tol {LOGITS_TOL:g}), final states max|diff| "
+        f"{state[0]:.3e} ({state[1]:.3e} of 1+|plain|), finite {finite}, "
+        f"scan launches on the plain route {plain_launches}")
+    if not finite or diff > LOGITS_TOL or plain_launches:
+        fail(f"{MAMBA} prefill logits: kernel and plain scan disagree")
+    del plain, pcache
+    tok = kern[:, -1].argmax(-1)[:, None]
+    _profile_decode(engine, params, cache, tok, S)
+    del params, engine, cache, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": got}
+
+
+# ---------------------------------------------------------------------------
+# phase 4n: train mamba2-2.7b at full width, depth cut, with two ranks
+# ---------------------------------------------------------------------------
+def _mamba_args(comm, schedule, steps):
+    from repro_torch.launch import train
+
+    return train.parse_args([
+        "--arch", MAMBA, "--seed", str(SEED), "--device", "cuda",
+        "--comm", comm, "--schedule", schedule, "--strategy", "lb_mini",
+        "--dataset", "longalign", "--data-axis", str(TRAIN["data_axis"]),
+        "--steps", str(steps), "--max-tokens", str(TRAIN["max_tokens"]),
+        "--max-len", str(TRAIN["max_len"]),
+        "--minibatch-per-device", str(TRAIN["minibatch_per_device"])])
+
+
+def phase_mamba_train() -> dict:
+    """collective x layer and ODC x minibatch through the train entry
+    point, held to each other as qwen's runs are and to their launch
+    counts; step 0 again on the plain scan route (``ssd_chunked``), its
+    loss and gradient norm within CP_PLAIN_RTOL; one profiled step."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import fsdp
+    from repro_torch.launch import train
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(get_config(MAMBA), num_layers=MAMBA_LAYERS)
+    log(f"train {MAMBA}: full width, {MAMBA_LAYERS} of 64 layers "
+        f"({cfg.num_params() / 1e9:.3f} B parameters)")
+    runs = {}
+    for comm, schedule in TRAIN_CONFIGS[:2]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        train.reset_launches()
+        summary = train.run(_mamba_args(comm, schedule, TRAIN["steps"]),
+                            cfg=cfg)
+        torch.cuda.synchronize()
+        got = train.read_launches()
+        dims = summary["dims"]
+        if any(fsdp.get(dims, p) is None for p in fsdp.tree_paths(dims)):
+            fail(f"{MAMBA} on {TRAIN['data_axis']} ranks replicates a leaf")
+        want = _expected_launches(cfg, comm, schedule, summary, dims)
+        peak = torch.cuda.max_memory_allocated()
+        tag = f"{MAMBA} {comm} x {schedule}"
+        log(f"train {tag} ({cfg.num_layers} layers): losses "
+            f"{summary['losses']}, step s "
+            f"{[round(t, 3) for t in summary['step_s']]}, tokens "
+            f"{[st['tokens'] for st in summary['steps']]}, microbatches "
+            f"{[(st['microbatches'], st['counts']) for st in summary['steps']]}"
+            f", {summary['tok_s']:.1f} tok/s, peak memory "
+            f"{peak / 2 ** 30:.2f} GiB, grad norms "
+            f"{[st['grad_norm'] for st in summary['steps']]}, launches {got} "
+            f"(want {want})")
+        if not all(math.isfinite(x) for x in summary["losses"]):
+            fail(f"train {tag}: a loss is not finite")
+        if got != want:
+            fail(f"train {tag}: kernel launches {got}, want {want}")
+        summary["peak_bytes"] = peak
+        summary["launches"] = got
+        runs[tag] = summary
+    _hold_to_first(runs)
+    odc_run = runs[f"{MAMBA} odc x minibatch"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    prev = ssm.set_ssd_impl(ssm.ssd_chunked)
+    try:
+        train.reset_launches()
+        plain = train.run(_mamba_args("odc", "minibatch", 1), cfg=cfg)
+        torch.cuda.synchronize()
+    finally:
+        ssm.set_ssd_impl(prev)
+    l0, p0 = odc_run["losses"][0], plain["losses"][0]
+    n0, pn0 = odc_run["steps"][0]["grad_norm"], plain["steps"][0]["grad_norm"]
+    rel_l, rel_n = abs(l0 - p0) / abs(p0), abs(n0 - pn0) / abs(pn0)
+    log(f"train {MAMBA} odc x minibatch step 0, kernel route against the "
+        f"plain scan route (scan launches {plain['launches']['ssd_scan']}): "
+        f"loss {l0!r} vs {p0!r} ({rel_l:.2e} relative), gradient norm "
+        f"{n0!r} vs {pn0!r} ({rel_n:.2e}) (tol {CP_PLAIN_RTOL:g})")
+    if plain["launches"]["ssd_scan"] or max(rel_l, rel_n) > CP_PLAIN_RTOL:
+        fail(f"train {MAMBA}: step 0 differs from the plain scan route")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _profile_train_step("odc", "minibatch", cfg=cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serve qwen-1.5b at full width through the entry point, then
 # the wave prefill with the plain attention, and a decode-step profile
 # ---------------------------------------------------------------------------
@@ -1153,7 +1451,8 @@ def _profile_decode(engine, params, cache, tok, start, steps=8):
     dev, n_kernels = _device_ms(prof, "decode_trace.json", steps, {
         "flash_attention": ("attn_fwd",), "gemm": ("gemm", "gemv")})
     busy = sum(dev.values())
-    log(f"decode step profile (wave, batch {tok.shape[0]}): host "
+    log(f"decode step profile ({engine.cfg.name} wave, batch "
+        f"{tok.shape[0]}): host "
         f"{wall:.2f} ms/step ({wall_prof:.2f} under the profiler), device "
         f"busy {busy:.2f} ms/step = flash_attention {dev['flash_attention']:.2f}"
         f" + gemm {dev['gemm']:.2f} + other {dev['other']:.2f}, "
@@ -1172,8 +1471,9 @@ def _profile_decode(engine, params, cache, tok, start, steps=8):
 def _expected_launches(cfg, comm, schedule, summary, dims):
     """Kernel launches a train run must make, from the model's leaves and
     layers and the run's microbatches, steps and cp degree.  Every layer
-    runs its attention twice per microbatch (forward, and the recompute of
-    the backward pass); one ring launch serves every rank."""
+    runs its attention (the ssm family: its SSD scan) twice per microbatch
+    (forward, and the recompute of the backward pass); one ring launch
+    serves every rank."""
     from repro_torch.core import fsdp
 
     L = cfg.num_layers
@@ -1183,6 +1483,8 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
     per_layer = len(sharded) - len(top)
     from repro_torch.launch.train import KERNELS
 
+    # the kernel every layer runs in its forward and in its recompute
+    kern = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
     want = dict.fromkeys(KERNELS, 0)
     ring = comm in ("odc", "odc-overlap", "cp")
     cp = summary.get("cp", 1)
@@ -1197,7 +1499,7 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
             T, g = summary["tiers"]
             both = [p for p in sharded
                     if not isinstance(fsdp.get(dims, p), fsdp.IntraDim)]
-            want["flash_attention"] += 2 * L * sum(st["counts"])
+            want[kern] += 2 * L * sum(st["counts"])
             if comm == "pipe-int8":
                 want["odc_gather_q8"] += len(both) * g
                 want["odc_scatter_accumulate_q8"] += len(both) * g
@@ -1213,7 +1515,7 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
             # once each way, and every layer runs its attention in the
             # forward and the recompute
             M = st["microbatches"]
-            want["flash_attention"] += 2 * L * summary["world"] * M
+            want[kern] += 2 * L * summary["world"] * M
             want["odc_gather"] += M * len(top) * ring
             want["odc_scatter_accumulate"] += M * len(top) * ring
             want["odc_gather_layers"] += M * ring
@@ -1237,7 +1539,7 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
         elif schedule == "minibatch":
             # each rank runs only its real microbatches; every leaf is
             # gathered once and scattered once per step
-            want["flash_attention"] += 2 * L * sum(st["counts"])
+            want[kern] += 2 * L * sum(st["counts"])
             want["odc_gather"] += len(sharded) * ring
             want["odc_scatter_accumulate"] += len(sharded) * ring
         else:
@@ -1245,7 +1547,7 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
             # top-level leaves once per microbatch, each layer's leaves in
             # the forward and again in the recompute
             M = st["microbatches"]
-            want["flash_attention"] += 2 * L * summary["world"] * M
+            want[kern] += 2 * L * summary["world"] * M
             want["odc_gather"] += M * (len(top) + 2 * L * per_layer) * ring
             want["odc_scatter_accumulate"] += \
                 M * (len(top) + L * per_layer) * ring
@@ -1321,7 +1623,8 @@ def _overlap_timeline(path) -> dict:
             "busy_ms": busy / 1e3}
 
 
-def _profile_train_step(comm="odc", schedule="minibatch", cp=1) -> dict:
+def _profile_train_step(comm="odc", schedule="minibatch", cp=1,
+                        cfg=None) -> dict:
     """Where one train step's time goes: host wall time of a step without
     the profiler, then device time per kernel class from a torch.profiler
     trace of the same step (same batch, next parameters), the kernels of
@@ -1329,7 +1632,9 @@ def _profile_train_step(comm="odc", schedule="minibatch", cp=1) -> dict:
     apart by their label.  For the overlap schedule also the chained
     rings' time under compute, the packing copies, and the busy time as
     the union of the kernels' intervals.  ``cp`` > 1: the cp run's
-    configuration (CP_TRAIN, lb_token) instead of TRAIN's."""
+    configuration (CP_TRAIN, lb_token) instead of TRAIN's.  ``cfg``: the
+    model in place of ARCH's (the SSD scan's backward, PyTorch code, is
+    then counted apart by its label too)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.balance.cost import CostModel
@@ -1341,9 +1646,10 @@ def _profile_train_step(comm="odc", schedule="minibatch", cp=1) -> dict:
     from repro_torch.models import transformer as T
 
     from repro_torch.kernels.flash_attention import BWD_LABEL
+    from repro_torch.kernels.ssd_scan import BWD_LABEL as SSD_BWD_LABEL
 
     spec = CP_TRAIN if cp > 1 else TRAIN
-    cfg = get_config(ARCH)
+    cfg = cfg or get_config(ARCH)
     ranks = RankGroup.make(cp if cp > 1 else TRAIN["data_axis"], "cuda")
     tr = Trainer(cfg, ranks, comm=comm, schedule=schedule, cp=cp)
     shards, opt = tr.init_state(T.init_params(
@@ -1375,15 +1681,17 @@ def _profile_train_step(comm="odc", schedule="minibatch", cp=1) -> dict:
         t0 = time.perf_counter()
         step()
         wall_prof = (time.perf_counter() - t0) * 1e3
-    tag = f"{comm} x {tr.schedule}"
-    name = f"train_trace_{comm}_{tr.schedule}.json"
+    tag = f"{cfg.name} {comm} x {tr.schedule}"
+    name = f"train_trace_{cfg.name}_{comm}_{tr.schedule}.json"
     dev, n_kernels = _device_ms(prof, name, 1, {
         "flash_attention": ("attn_fwd",),
         "flash_attention_state": ("attn_state",),
+        "ssd_scan": ("ssd_scan_kernel",),
         "odc_chained": CHAINED,
         "odc_rings": ("odc_gather_kernel", "odc_scatter_kernel"),
         "gemm": ("gemm", "gemv", "cutlass", "xmma")},
-        labels={"flash_backward": BWD_LABEL})
+        labels={"flash_backward": BWD_LABEL,
+                "ssd_backward": SSD_BWD_LABEL})
     busy = sum(dev.values())
     result = {"host_ms": wall, "host_ms_profiled": wall_prof,
               "device_ms": dev, "kernels": n_kernels}
@@ -1465,6 +1773,22 @@ def phase_train() -> dict:
         runs[tag] = summary
         gc.collect()
         torch.cuda.empty_cache()
+    _hold_to_first(runs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    profiles = {}
+    for comm, schedule in (("odc", "minibatch"), ("odc-overlap", "overlap")):
+        profiles[f"{comm} x {schedule}"] = _profile_train_step(comm,
+                                                               schedule)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"runs": runs, "profiles": profiles}
+
+
+def _hold_to_first(runs):
+    """Every run against the first: step-0 losses equal (the same
+    parameters and batches through the same forward), step-0 gradient
+    norms within GRAD_NORM_RTOL, later losses within TRAIN_LOSS_RTOL."""
     (b, rb), *others = runs.items()
     for a, ra in others:
         l0a, l0b = ra["losses"][0], rb["losses"][0]
@@ -1486,15 +1810,6 @@ def phase_train() -> dict:
         if rel > TRAIN_LOSS_RTOL:
             fail(f"train: {a} and {b} losses after step 0 differ by "
                  f"{rel:.2e}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    profiles = {}
-    for comm, schedule in (("odc", "minibatch"), ("odc-overlap", "overlap")):
-        profiles[f"{comm} x {schedule}"] = _profile_train_step(comm,
-                                                               schedule)
-        gc.collect()
-        torch.cuda.empty_cache()
-    return {"runs": runs, "profiles": profiles}
 
 
 # ---------------------------------------------------------------------------
@@ -1647,10 +1962,13 @@ def _same_step0(a, ra, b, rb):
 
 
 def _against_plain_q8(tag, q8, steps, data_axis=TRAIN["data_axis"],
-                      cfg=None):
+                      cfg=None, count_zeros=False):
     """The first ``steps`` steps of the pipe-int8 run ``q8`` against the
     same run on the plain q8 route (the rings of ``core.odc``, no q8 or
-    codec kernel): losses and gradient norms bitwise equal."""
+    codec kernel): losses and gradient norms bitwise equal.  With
+    ``count_zeros`` the plain route's q8 scatters also report step 0's
+    zeroed gradient elements (``_Q8Zeros``); that run is not timed."""
+    import contextlib
     import gc
 
     from repro_torch.core import odc
@@ -1661,12 +1979,16 @@ def _against_plain_q8(tag, q8, steps, data_axis=TRAIN["data_axis"],
     quant.odc_gather_q8 = odc.ring_gather_q8
     quant.odc_scatter_accumulate_q8 = odc.ring_scatter_accumulate_q8
     try:
-        train.reset_launches()
-        plain = train.run(_tier_args("pipe-int8", TIER_CONFIGS[2][1], steps,
-                                     data_axis), cfg=cfg)
-        torch.cuda.synchronize()
+        with (_Q8Zeros() if count_zeros
+              else contextlib.nullcontext()) as zeros:
+            train.reset_launches()
+            plain = train.run(_tier_args("pipe-int8", TIER_CONFIGS[2][1],
+                                         steps, data_axis), cfg=cfg)
+            torch.cuda.synchronize()
     finally:
         quant.odc_gather_q8, quant.odc_scatter_accumulate_q8 = kernels
+    if count_zeros:
+        zeros.report(steps)
     gc.collect()
     torch.cuda.empty_cache()
     losses = q8["losses"][:steps], plain["losses"]
@@ -1682,6 +2004,57 @@ def _against_plain_q8(tag, q8, steps, data_axis=TRAIN["data_axis"],
         fail(f"train {tag}: the plain route launched a q8 kernel")
     if not same:
         fail(f"train {tag}: a step differs from the plain q8 route")
+
+
+class _Q8Zeros:
+    """Counts, over the q8 scatters of a run (whichever q8 scatter the
+    run calls: the plain route's, whose steps equal the kernel's bitwise),
+    the gradient elements the q8 scatter rounds to 0 whose f32 sum (the same contributions summed in
+    rank order, plain PyTorch: no kernel launch) is not 0; and those whose
+    q8 sum is the owning rank's own contribution exactly while the other
+    ranks' f32 contributions are not 0 (every contribution that arrived
+    over the int8 wire rounded to 0: the own one is added in f32)."""
+
+    def __enter__(self):
+        from repro_torch.core import odc
+        from repro_torch.kernels import quant
+
+        self.calls = []
+        self.kernel = quant.odc_scatter_accumulate_q8
+
+        def counted(ys, order=None):
+            out = self.kernel(ys, order)
+            ref = odc.collective_scatter(ys)
+            c = ref[0].shape[0]
+            own = [y[r * c:(r + 1) * c] for r, y in enumerate(ys)]
+            self.calls.append((
+                sum(int(((o == 0) & (f != 0)).sum())
+                    for o, f in zip(out, ref)),
+                sum(int((f != 0).sum()) for f in ref),
+                sum(f.numel() for f in ref),
+                sum(int(((o == w) & (f != w)).sum())
+                    for o, f, w in zip(out, ref, own))))
+            return out
+
+        quant.odc_scatter_accumulate_q8 = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import quant
+
+        quant.odc_scatter_accumulate_q8 = self.kernel
+
+    def report(self, steps):
+        """Log step 0's counts (every step makes the same scatters)."""
+        per = len(self.calls) // steps
+        zeroed, nonzero, total, lost = (sum(c[i] for c in self.calls[:per])
+                                        for i in range(4))
+        log(f"train pipe-int8 step 0: the q8 scatter rounds {zeroed} of "
+            f"{nonzero} nonzero f32 gradient elements to 0 "
+            f"({zeroed / max(nonzero, 1):.3%}; {zeroed / total:.3%} of all "
+            f"{total} elements it carries, over {per} scatters); in {lost} "
+            f"({lost / total:.3%}) every other rank's nonzero contribution "
+            f"rounded to 0 on the int8 wire")
 
 
 def phase_tier_train(odc_run) -> dict:
@@ -1703,7 +2076,8 @@ def phase_tier_train(odc_run) -> dict:
     _same_step0("hier x minibatch", runs["hier"], "odc x minibatch", odc_run)
     _same_step0("pipe x 1f1b", runs["pipe"], "hier x minibatch", runs["hier"])
 
-    _against_plain_q8("pipe-int8", runs["pipe-int8"], TRAIN["steps"])
+    _against_plain_q8("pipe-int8", runs["pipe-int8"], TRAIN["steps"],
+                      count_zeros=True)
     gaps = [abs(a - b) for a, b in zip(runs["pipe-int8"]["losses"],
                                        runs["pipe"]["losses"])]
     log(f"train pipe-int8 against pipe: |loss gap| per step "
@@ -2122,15 +2496,62 @@ def _q8_times(kind) -> dict:
             "library_ms": lib_ms}
 
 
-def phase_times(errs, grad_errs, serve_launches, train_runs) -> list:
+def _ssd_times(name) -> dict:
+    """Kernel and plain times of the SSD scan at one of SSD_CASES' shapes
+    in float32, its max |diff| from the plain version there, and its
+    bound: the larger of the causal operations at the f32 rate and the
+    bytes (inputs read once, y and the state written once) at 3.35 TB/s.
+    The operations: the Q(Q+1)/2 scores C.B^T, 2n FLOP each, once per
+    (b, group, chunk), since every head of a group shares them; per
+    (b, h, chunk) their products with x, 2p FLOP each, and 4Qpn for the
+    off-diagonal term and the state.  No single PyTorch call computes the
+    scan: no library time."""
+    from repro_torch.kernels import ssd_scan as K
+
+    b, s, h, p, g, n, Q, pad = SSD_CASES[name]
+    ins = _ssd_inputs(b, s, h, p, g, n, pad, torch.float32, seed=99)
+    y, st = K.ssd_scan(*ins, Q)
+    ry, rst = K.ssd_scan_plain(*ins, Q)
+    max_err = max(_rel_err(y, ry)[0], _rel_err(st, rst)[0])
+    del y, st, ry, rst
+    ms = _time_ms(lambda: K.ssd_scan(*ins, Q))
+    plain_ms = _time_ms(lambda: K.ssd_scan_plain(*ins, Q), iters=5,
+                        warmup=1)
+    chunks = b * (s // Q)
+    tri = Q * (Q + 1) // 2
+    ops = chunks * (g * tri * 2 * n + h * (tri * 2 * p + 4 * Q * p * n))
+    full_ops = chunks * (g * 2 * Q * Q * n
+                         + h * (2 * Q * Q * p + 4 * Q * p * n))
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
+                  + b * h * p * n)
+    ops_ms = ops / PEAK_FLOPS[torch.float32] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    shape_s = (f"{name}: (b, s, h, p, g, n, Q) = {(b, s, h, p, g, n, Q)} "
+               f"float32")
+    log(f"time ssd_scan {shape_s}: kernel {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {ops / 1e9:.2f} GFLOP causal; the "
+        f"full (Q, Q) blocks {full_ops / 1e9:.2f} GFLOP, "
+        f"{full_ops / PEAK_FLOPS[torch.float32] * 1e3:.4f} ms; bytes "
+        f"{bytes_ms:.4f} ms), plain {plain_ms:.4f} ms, library none, "
+        f"kernel/bound {ms / bound_ms:.1f}x")
+    del ins
+    torch.cuda.empty_cache()
+    return {"shape": shape_s, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def phase_times(errs, grad_errs, serve_runs, train_runs) -> list:
     """One record per kernel: its numbers at the first shape, and at each
     measured shape under ``per_shape``; launches over the serve and train
     runs, by path under ``launches_by_path``."""
     from repro_torch.kernels import flash_attention as fa
 
     by_path = {}
-    for name in serve_launches:
-        by_path[name] = {"serve": serve_launches[name]}
+    for name in serve_runs["serve"]:
+        by_path[name] = {tag: got[name] for tag, got in serve_runs.items()}
         for tag, run in train_runs.items():
             by_path[name][f"train {tag}"] = run["launches"][name]
 
@@ -2215,6 +2636,13 @@ def phase_times(errs, grad_errs, serve_launches, train_runs) -> list:
                         "launches": sum(by_path[name].values()),
                         "launches_by_path": by_path[name], **rec,
                         "per_shape": [rec]})
+    ssd = [_ssd_times(name) for name in ("serve prefill", "train")]
+    records.append({"name": "ssd_scan", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                    "replaces": "src/repro/kernels/ssd_scan.py:83",
+                    "launches": sum(by_path["ssd_scan"].values()),
+                    "launches_by_path": by_path["ssd_scan"], **ssd[0],
+                    "per_shape": ssd})
     return records
 
 
@@ -2233,6 +2661,10 @@ def main() -> int:
     phase_layer_flags()
     phase_codec()
     phase_q8_rings()
+    phase_ssd_kernel()
+    phase_ssd_grad()
+    mamba_served = phase_mamba_serve()
+    mamba_trained = phase_mamba_train()
     served = phase_serve()
     trained = phase_train()
     cp_trained = phase_cp_train()
@@ -2242,7 +2674,10 @@ def main() -> int:
     runs["cp x minibatch"] = cp_trained["run"]
     for tag, run in tiers["runs"].items():
         runs[tag] = run
-    records = phase_times(errs, grad_errs, served["launches"], runs)
+    runs.update(mamba_trained["runs"])
+    records = phase_times(errs, grad_errs, {
+        "serve": served["launches"],
+        f"serve {MAMBA}": mamba_served["launches"]}, runs)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
     print(env["smi"])
     print(json.dumps({"kernels": records}))

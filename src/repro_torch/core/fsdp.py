@@ -4,9 +4,11 @@ shards.
 
 The rule is ``repro.core.gspmd.leaf_pspec`` with the model axis off and
 the data axis the only mesh axis: ``embed`` on dim 1; ``lm_head``,
-``wq``, ``wk``, ``wv``, ``w_gate`` and ``w_up`` on dim 0; ``wo`` and
-``w_down`` on dim 1; every other leaf (norms) on its last dim; stacked
-``(L, ...)`` leaves under ``layers`` one dim later.  A dim that the rank
+``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up`` and mamba's ``in_proj`` on
+dim 0; ``wo``, ``w_down``, ``out_proj`` and ``conv_w`` on dim 1; every
+other leaf (the 1-D leaves: norms, and mamba's ``conv_b``, ``dt_bias``,
+``A_log``, ``D`` and ``gate_norm``) on its last dim; stacked ``(L, ...)``
+leaves under ``layers`` one dim later.  A dim that the rank
 count does not divide is not sharded (``sanitize_spec``): the leaf is
 replicated, every rank holds all of it, and its gradient is summed over
 the ranks.
@@ -17,7 +19,7 @@ along d, as ``shard_map`` hands it out.
 Under a two-tier layout (``ranks.Tiers``: the ``hier`` and ``pipe``
 backends' (inter, intra) data axes) every leaf above shards over both
 tiers, node-major, exactly as over the flat ranks -- except the leaves
-of the last rule (norms): ``leaf_pspec`` shards those over the innermost
+of the last rule (1-D): ``leaf_pspec`` shards those over the innermost
 data axis only.  Their dim is an ``IntraDim``: rank ``t*intra + d`` holds
 piece d of ``intra``, the pieces are replicated across the groups, a
 gather concatenates a group's pieces, and their gradients are summed over
@@ -32,8 +34,8 @@ from typing import List, Optional, Sequence
 import torch
 
 STACK_KEY = "layers"
-_DIM0 = ("lm_head", "wq", "wk", "wv", "w_gate", "w_up")
-_DIM1 = ("embed", "wo", "w_down")
+_DIM0 = ("lm_head", "wq", "wk", "wv", "w_gate", "w_up", "in_proj")
+_DIM1 = ("embed", "wo", "w_down", "out_proj", "conv_w")
 
 
 class IntraDim(int):

@@ -88,6 +88,8 @@ class Trainer:
         if self.cp != 1 and self.backend is not B.CP:
             raise ValueError(f"cp={self.cp} needs comm 'cp', not "
                              f"{self.backend.name!r}")
+        if self.backend is B.CP:
+            T.require_cp(self.cfg)
         self.groups = cp_groups(n, self.cp)
         self.tiers = None
         if self.backend.two_tier:

@@ -57,6 +57,8 @@ SIGNATURES = {
                "repro_odc_gather_q8_capacity": [_PI],
                "repro_odc_scatter_q8": _RING,
                "repro_odc_scatter_q8_capacity": [_PI]},
+    # x, dt, A, B, C, y, state; b, s, h, p, g, n, Q, dtype; the stream
+    "ssd_scan": {"repro_ssd_scan": [_P] * 7 + [_I] * 8 + [_P]},
 }
 
 _libs: dict = {}

@@ -7,7 +7,12 @@ Default mode prefills one fixed request batch and decodes it in lockstep
 decode lanes through the block allocator, short requests retire early
 (``--length-spread`` carves per-request lengths), and freed slots admit
 queued requests mid-decode.  Every attention call goes through the
-hand-written CUDA kernel (``repro_torch.kernels.flash_attention``).
+hand-written CUDA kernel (``repro_torch.kernels.flash_attention``).  The
+ssm family (``--arch mamba2-2.7b``) serves in wave mode only: its prefill
+runs the hand-written SSD scan kernel (``repro_torch.kernels.ssd_scan``)
+and writes each layer's conv tail and final scan state into a new cache,
+and each decode step is the recurrent update; ``--continuous`` refuses
+it, as the JAX engine does.
 
 Weights are random, drawn from ``--seed`` by a ``torch.Generator`` on the
 target device.  Runs on the card unless ``--device cpu`` is given;
@@ -20,6 +25,8 @@ Examples:
       --continuous --slots 4 --requests 12 --length-spread 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen-1.5b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+      --batch 8 --prompt-len 512 --gen 32
 """
 from __future__ import annotations
 

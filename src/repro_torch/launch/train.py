@@ -18,8 +18,11 @@ ODC ring is one launch of a hand-written CUDA kernel (under the overlap
 schedule, one chained launch per microbatch round carries the whole
 trunk).
 
-Weights are random, drawn from ``--seed`` by a ``torch.Generator`` on the
-target device, in float32; float32 products run in full f32 (TF32 off).
+The dense family and the ssm family (``--arch mamba2-2.7b``, whose
+mixers run the hand-written SSD scan kernel) train under every ``--comm``
+but cp, which the ssm family refuses.  Weights are random, drawn from
+``--seed`` by a ``torch.Generator`` on the target device, in float32;
+float32 products run in full f32 (TF32 off).
 Runs on the card unless ``--device cpu`` is given.
 
 Examples:
@@ -35,6 +38,8 @@ Examples:
       --reduced --device cpu --comm cp --cp 2 --strategy lb_token --steps 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen-1.5b \\
       --reduced --device cpu --data-axis 4 --comm pipe-int8 --pipe-stages 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+      --reduced --device cpu --data-axis 2 --steps 2
 
 Where the flags mean something else than in ``repro.launch.train``: the
 JAX driver lays its mesh over every host device and ignores
@@ -60,7 +65,7 @@ from repro_torch.core.train_step import Trainer
 from repro_torch.data.loader import SyntheticSFTLoader
 from repro_torch.data.packing import build_minibatch
 from repro_torch.kernels import flash_attention, odc_gather, odc_scatter, \
-    quant
+    quant, ssd_scan
 from repro_torch.models import transformer as T
 from repro_torch.obs import log as obs_log
 from repro_torch.optim.adamw import AdamWConfig
@@ -76,7 +81,8 @@ KERNELS = {"flash_attention": (flash_attention, "launches"),
            "quantize_int8": (quant, "quantize_launches"),
            "dequantize_int8": (quant, "dequantize_launches"),
            "odc_gather_q8": (quant, "gather_launches"),
-           "odc_scatter_accumulate_q8": (quant, "scatter_launches")}
+           "odc_scatter_accumulate_q8": (quant, "scatter_launches"),
+           "ssd_scan": (ssd_scan, "launches")}
 _NOT_PORTED_FLAGS = ("trace", "metrics", "config")
 
 

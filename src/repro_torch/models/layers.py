@@ -68,6 +68,13 @@ def embed_init(gen: torch.Generator, shape, dtype):
 # --------------------------------------------------------------------------
 # norms / activations / rope
 # --------------------------------------------------------------------------
+def promoted_matmul(a, b):
+    """``a @ b`` in the promoted type of the two, as a jnp product of mixed
+    types computes (bf16 weights against an f32 activation)."""
+    t = torch.promote_types(a.dtype, b.dtype)
+    return a.to(t) @ b.to(t)
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
     dtype = x.dtype
     x = x.float()

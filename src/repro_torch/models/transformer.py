@@ -1,5 +1,5 @@
-"""Model assembly, dense family: the PyTorch counterpart of the dense path
-of ``repro.models.transformer``.
+"""Model assembly, dense and ssm families: the PyTorch counterpart of the
+dense and ssm paths of ``repro.models.transformer``.
 
     init_params(cfg, gen, dtype)                   -> params dict
     apply(cfg, params, batch, ...)                 -> (logits, aux, caches)
@@ -12,6 +12,12 @@ stacked on a leading ``(L, ...)`` axis, so ``bridge.params_from_numpy``
 carries a JAX tree over as it is.  The layer trunk is a Python loop over
 that axis; each layer gets its sliding window as a Python int, which is
 what the attention kernel needs.
+
+The ssm family (mamba2) stacks ``{"norm", "mamba"}`` blocks under
+``layers``; its caches are ``{"conv": (L, B, W-1, conv_dim), "ssm": (L, B,
+h, p, n)}``, and ``apply`` returns new caches (the ones passed in are not
+written).  As in the reference, the ssm forward reads no positions and no
+segment ids: the conv and the scan run across packed samples.
 """
 from __future__ import annotations
 
@@ -21,15 +27,25 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.odc import prefetch_scan
 from repro_torch.core.ranks import cp_groups
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 
 
-def _require_dense(cfg: ModelConfig):
-    if cfg.family != "dense" or cfg.num_experts:
+def _require_ported(cfg: ModelConfig):
+    if cfg.num_experts or cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"yet (ROADMAP.md, queue 1 item 2); this slice runs the dense "
-            f"family only")
+            f"yet (ROADMAP.md, queue 1 item 2); the port runs the dense and "
+            f"ssm families")
+
+
+def require_cp(cfg: ModelConfig):
+    """Refuse context parallelism for a family that has no cp path."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: context parallelism of the {cfg.family} family is "
+            f"not ported (ROADMAP.md, queue 1 item 5): a scan split over the "
+            f"cp ranks needs its state passed between them")
 
 
 # ===========================================================================
@@ -46,10 +62,18 @@ def _dense_block_params(gen, cfg, dtype, prefix_shape=()):
     }
 
 
+def _mamba_block_params(gen, cfg, dtype, prefix_shape=()):
+    return {
+        "norm": torch.zeros(prefix_shape + (cfg.d_model,), dtype=dtype,
+                            device=gen.device),
+        "mamba": ssm_mod.mamba2_params(gen, cfg, dtype, prefix_shape),
+    }
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 dtype=torch.float32):
     """Random weights drawn from ``gen``, on ``gen``'s device."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     params = {"embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
                                     dtype)}
     if not cfg.tie_embeddings:
@@ -57,16 +81,31 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                                          dtype)
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
                                        device=gen.device)
-    params["layers"] = _dense_block_params(gen, cfg, dtype,
-                                           (cfg.num_layers,))
+    block = _mamba_block_params if cfg.family == "ssm" \
+        else _dense_block_params
+    params["layers"] = block(gen, cfg, dtype, (cfg.num_layers,))
     return params
 
 
 def param_shapes(cfg: ModelConfig):
     """The tree ``init_params`` builds, as meta tensors (shapes only)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     meta = lambda *shape: torch.empty(shape, device="meta")
+    params = {"embed": meta(cfg.vocab_size, cfg.d_model)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = meta(cfg.d_model, cfg.vocab_size)
+    params["final_norm"] = meta(cfg.d_model)
     L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+    if cfg.family == "ssm":
+        di, nh = cfg.ssm_d_inner, cfg.ssm_nheads
+        gn = cfg.ssm_ngroups * cfg.ssm_state_size
+        mamba = {"in_proj": meta(L, d, 2 * di + 2 * gn + nh),
+                 "conv_w": meta(L, cfg.ssm_conv_width, di + 2 * gn),
+                 "conv_b": meta(L, di + 2 * gn), "dt_bias": meta(L, nh),
+                 "A_log": meta(L, nh), "D": meta(L, nh),
+                 "gate_norm": meta(L, di), "out_proj": meta(L, di, d)}
+        params["layers"] = {"norm": meta(L, d), "mamba": mamba}
+        return params
     qd, kvd, hd = cfg.q_dim, cfg.kv_dim, cfg.resolved_head_dim
     attn = {"wq": meta(L, d, qd), "wk": meta(L, d, kvd),
             "wv": meta(L, d, kvd), "wo": meta(L, qd, d)}
@@ -76,10 +115,6 @@ def param_shapes(cfg: ModelConfig):
     mlp = {"w_up": meta(L, d, f), "w_down": meta(L, f, d)}
     if cfg.activation in ("swiglu", "geglu"):
         mlp["w_gate"] = meta(L, d, f)
-    params = {"embed": meta(cfg.vocab_size, d)}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = meta(d, cfg.vocab_size)
-    params["final_norm"] = meta(d)
     params["layers"] = {"attn_norm": meta(L, d), "attn": attn,
                         "mlp_norm": meta(L, d), "mlp": mlp}
     return params
@@ -130,12 +165,18 @@ def _apply_cp_blocks(cfg, lps, xs, batches, *, window, cp):
             for lp, x, a in zip(lps, xs, outs)]
 
 
+def _apply_mamba_block(cfg, lp, x, *, cache):
+    h = L.rms_norm(x, lp["norm"], cfg.norm_eps)
+    out, cache = ssm_mod.mamba2_apply(cfg, lp["mamba"], h, cache=cache)
+    return x + out, cache
+
+
 def _logits(cfg, params, x):
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    logits = x @ head
+    logits = L.promoted_matmul(x, head)
     if cfg.final_logit_softcap > 0:
         logits = L.softcap(logits, cfg.final_logit_softcap)
     return logits
@@ -160,14 +201,36 @@ def _forward_dense(cfg, params, batch, caches, cache_index):
     return x
 
 
+def _forward_ssm(cfg, params, batch, caches):
+    """The mamba trunk; with caches, the stacked new caches of every
+    layer (prefill or one decode step, by the sequence length)."""
+    x = _embed(cfg, params, batch)
+    new = []
+    for i in range(cfg.num_layers):
+        cache = None
+        if caches is not None:
+            cache = {"conv": caches["conv"][i], "ssm": caches["ssm"][i]}
+        x, cache = _apply_mamba_block(cfg, _layer(params["layers"], i), x,
+                                      cache=cache)
+        new.append(cache)
+    if caches is None:
+        return x, None
+    return x, {k: torch.stack([c[k] for c in new]) for k in ("conv", "ssm")}
+
+
 def apply(cfg: ModelConfig, params, batch, *, caches=None, cache_index=None,
           last_only: bool = False):
     """Forward pass.  batch: tokens (B, S) and optional positions,
-    segment_ids (B, S).  caches are written in place at ``cache_index``.
-    last_only=True projects only the final position to logits.  Returns
-    (logits, aux, caches); aux is 0.0 for the dense family."""
-    _require_dense(cfg)
-    x = _forward_dense(cfg, params, batch, caches, cache_index)
+    segment_ids (B, S) (the ssm family reads neither).  Dense caches are
+    written in place at ``cache_index``; ssm caches are not written, and
+    the new ones come back.  last_only=True projects only the final
+    position to logits.  Returns (logits, aux, caches); aux is 0.0 for
+    both families."""
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        x, caches = _forward_ssm(cfg, params, batch, caches)
+    else:
+        x = _forward_dense(cfg, params, batch, caches, cache_index)
     if last_only:
         x = x[:, -1:]
     return _logits(cfg, params, x), 0.0, caches
@@ -175,8 +238,15 @@ def apply(cfg: ModelConfig, params, batch, *, caches=None, cache_index=None,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device="cuda"):
-    """Zeroed KV caches: {"k", "v"} of shape (L, B, max_len, KH, hd)."""
-    _require_dense(cfg)
+    """Zeroed decode caches: dense {"k", "v"} of shape (L, B, max_len, KH,
+    hd); ssm {"conv": (L, B, W-1, conv_dim) in ``dtype``, "ssm": (L, B, h,
+    p, n) float32}, broadcast views of one layer's zeros (``apply`` never
+    writes an ssm cache)."""
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        base = ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+        return {k: v.expand((cfg.num_layers,) + v.shape)
+                for k, v in base.items()}
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -213,14 +283,23 @@ def forward_ranks(cfg: ModelConfig, params_list, batches, *,
     ``prefetch`` (schedule='overlap', the ``prefetch`` branch of the JAX
     ``_forward_dense``): the layer loop is ``core.odc.prefetch_scan``, and
     the hook materializes each layer's trees one iteration ahead in place
-    of ``pxform``, which then sees the top-level leaves only."""
-    _require_dense(cfg)
+    of ``pxform``, which then sees the top-level leaves only.
+
+    The ssm family runs each rank's mamba blocks in the same lockstep; it
+    has no cp path: a recurrence split over a group's ranks would need its
+    state passed between them (``require_cp``)."""
+    _require_ported(cfg)
+    if cp > 1:
+        require_cp(cfg)
     px = pxform or _identity
     tops = px([{k: v for k, v in p.items() if k != "layers"}
                for p in params_list])
     xs = [_embed(cfg, t, b) for t, b in zip(tops, batches)]
 
     def blocks(i, xs, full):
+        if cfg.family == "ssm":
+            return [_apply_mamba_block(cfg, lp, x, cache=None)[0]
+                    for lp, x in zip(full, xs)]
         if cp > 1:
             return _apply_cp_blocks(cfg, full, xs, batches,
                                     window=layer_window(cfg, i), cp=cp)

@@ -5,7 +5,8 @@ admission, retirement, stop and version-pinning semantics.
 ``GenerationEngine``
     wave-at-a-time: one fixed batch prefilled together, decoded in
     lockstep to the longest request; ``generate(stop_lengths=...)``
-    truncates each request at its own total length.
+    truncates each request at its own total length.  Dense and ssm
+    families; each step carries on with the cache the step returns.
 
 ``ContinuousGenerationEngine``
     continuous (in-flight) batching: a request queue feeds ``slots``
@@ -54,7 +55,7 @@ class GenerationResult:
 
 
 class GenerationEngine:
-    """Batched prefill/decode with a KV cache on ``device``."""
+    """Batched prefill/decode with a decode cache on ``device``."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  dtype=torch.float32):

@@ -1,7 +1,8 @@
 """The port's checkpoints, on the CPU.
 
 * Save -> resume through the train driver (reduced qwen, 2 ranks, the
-  overlap schedule and ODC x minibatch): 2 steps and a checkpoint, then a
+  overlap schedule and ODC x minibatch; reduced mamba2, the ssm family,
+  under ODC x minibatch): 2 steps and a checkpoint, then a
   resumed run to step 3, against 3 steps run straight.  Tolerance: none;
   the losses and final parameters are bitwise equal (the state round-trips
   exactly through float32 files, and the loader replays the skipped steps'
@@ -12,7 +13,7 @@
 * Across the packages: a checkpoint written by
   ``repro.checkpoint.save_checkpoint`` loads into the port as the same
   tree, and one written by the port loads into the JAX package, bitwise,
-  with the same file names, keys and manifest.
+  with the same file names, keys and manifest; for mamba2's tree too.
 """
 import json
 import os
@@ -36,10 +37,11 @@ from repro_torch.core.train_step import Trainer
 from repro_torch.launch import train as train_cli
 
 ARCH = "qwen-1.5b"
+MAMBA = "mamba2-2.7b"
 
 
-def _args(*extra):
-    return train_cli.parse_args(["--arch", ARCH, "--reduced", "--device",
+def _args(*extra, arch=ARCH):
+    return train_cli.parse_args(["--arch", arch, "--reduced", "--device",
                                  "cpu", "--data-axis", "2", "--quiet",
                                  *extra])
 
@@ -52,23 +54,32 @@ def one_thread():
     torch.set_num_threads(before)
 
 
-@pytest.mark.parametrize("comm", ["odc-overlap", "odc"])
-def test_save_then_resume_is_bitwise(tmp_path, comm, one_thread):
+def _save_then_resume(tmp_path, comm, arch=ARCH):
     ckpt = str(tmp_path / "ckpt")
-    straight = train_cli.run(_args("--comm", comm, "--steps", "3"),
-                             return_params=True)
+    straight = train_cli.run(_args("--comm", comm, "--steps", "3",
+                                   arch=arch), return_params=True)
     first = train_cli.run(_args("--comm", comm, "--steps", "2",
-                                "--ckpt-dir", ckpt, "--ckpt-every", "2"))
+                                "--ckpt-dir", ckpt, "--ckpt-every", "2",
+                                arch=arch))
     assert first["saved"] == [2]
     assert tckpt.latest_step(ckpt) == 2
     resumed = train_cli.run(_args("--comm", comm, "--steps", "3",
-                                  "--ckpt-dir", ckpt, "--resume"),
+                                  "--ckpt-dir", ckpt, "--resume", arch=arch),
                             return_params=True)
     assert resumed["start_step"] == 2 and len(resumed["losses"]) == 1
     assert first["losses"] + resumed["losses"] == straight["losses"]
     for path in fsdp.tree_paths(straight["params"]):
         assert torch.equal(fsdp.get(straight["params"], path),
                            fsdp.get(resumed["params"], path)), path
+
+
+@pytest.mark.parametrize("comm", ["odc-overlap", "odc"])
+def test_save_then_resume_is_bitwise(tmp_path, comm, one_thread):
+    _save_then_resume(tmp_path, comm)
+
+
+def test_mamba_save_then_resume_is_bitwise(tmp_path, one_thread):
+    _save_then_resume(tmp_path, "odc", MAMBA)
 
 
 def test_resume_needs_a_directory_and_starts_fresh_without_one(tmp_path):
@@ -82,9 +93,8 @@ def test_resume_needs_a_directory_and_starts_fresh_without_one(tmp_path):
     assert tckpt.latest_step(empty) is None
 
 
-@pytest.fixture(scope="module")
-def jax_state():
-    cfg = jconfigs.get_reduced(ARCH)
+def _state(arch):
+    cfg = jconfigs.get_reduced(arch)
     params = JT.init_params(cfg, jax.random.PRNGKey(2))
     opt = jinit(params)
     # a state past step 0, so that m, v and step are not all zeros
@@ -92,6 +102,16 @@ def jax_state():
            "v": jax.tree.map(lambda x: x * x, params),
            "step": opt["step"] + 3}
     return {"params": params, "opt": opt}
+
+
+@pytest.fixture(scope="module")
+def jax_state():
+    return _state(ARCH)
+
+
+@pytest.fixture(scope="module")
+def mamba_state():
+    return _state(MAMBA)
 
 
 def _assert_same(ours, ref):
@@ -103,19 +123,27 @@ def _assert_same(ours, ref):
         assert np.array_equal(a, b), keys
 
 
-def test_jax_checkpoint_loads_into_the_port(tmp_path, jax_state):
+def _jax_to_port(tmp_path, state, arch):
     d = str(tmp_path)
-    jckpt.save_checkpoint(d, 5, jax_state)
-    tr = Trainer(get_reduced(ARCH), RankGroup.make(2, "cpu"))
+    jckpt.save_checkpoint(d, 5, state)
+    tr = Trainer(get_reduced(arch), RankGroup.make(2, "cpu"))
     assert tckpt.latest_step(d) == 5
     tree = tckpt.load_checkpoint(d, 5, tr.state_like())
-    _assert_same(tree, jax_state)
+    _assert_same(tree, state)
     shards, opt = tr.restore(tree)
     back = tr.state_tree(shards, opt)
     _assert_same({"params": _np_tree(back["params"]),
                   "opt": {"m": _np_tree(back["opt"]["m"]),
                           "v": _np_tree(back["opt"]["v"]),
-                          "step": back["opt"]["step"].numpy()}}, jax_state)
+                          "step": back["opt"]["step"].numpy()}}, state)
+
+
+def test_jax_checkpoint_loads_into_the_port(tmp_path, jax_state):
+    _jax_to_port(tmp_path, jax_state, ARCH)
+
+
+def test_mamba_jax_checkpoint_loads_into_the_port(tmp_path, mamba_state):
+    _jax_to_port(tmp_path, mamba_state, MAMBA)
 
 
 def _np_tree(tree):
@@ -123,21 +151,29 @@ def _np_tree(tree):
             for k, v in tree.items()}
 
 
-def test_port_checkpoint_loads_into_jax(tmp_path, jax_state):
+def _port_to_jax(tmp_path, state, arch):
     d_port, d_jax = str(tmp_path / "port"), str(tmp_path / "jax")
-    tr = Trainer(get_reduced(ARCH), RankGroup.make(2, "cpu"))
+    tr = Trainer(get_reduced(arch), RankGroup.make(2, "cpu"))
     from repro_torch import bridge
 
     shards, opt = bridge.train_state_from_numpy(
-        jax.tree.map(np.asarray, jax_state["params"]),
-        jax.tree.map(np.asarray, jax_state["opt"]), tr)
+        jax.tree.map(np.asarray, state["params"]),
+        jax.tree.map(np.asarray, state["opt"]), tr)
     tckpt.save_checkpoint(d_port, 7, tr.state_tree(shards, opt))
-    jckpt.save_checkpoint(d_jax, 7, jax_state)
+    jckpt.save_checkpoint(d_jax, 7, state)
     assert sorted(os.listdir(d_port)) == sorted(os.listdir(d_jax))
     with open(os.path.join(d_port, "state_00000007.json")) as f:
         ours = json.load(f)
     with open(os.path.join(d_jax, "state_00000007.json")) as f:
         ref = json.load(f)
     assert ours == ref
-    loaded = jckpt.load_checkpoint(d_port, 7, jax_state)
-    _assert_same(jax.tree.map(np.asarray, loaded), jax_state)
+    loaded = jckpt.load_checkpoint(d_port, 7, state)
+    _assert_same(jax.tree.map(np.asarray, loaded), state)
+
+
+def test_port_checkpoint_loads_into_jax(tmp_path, jax_state):
+    _port_to_jax(tmp_path, jax_state, ARCH)
+
+
+def test_mamba_port_checkpoint_loads_into_jax(tmp_path, mamba_state):
+    _port_to_jax(tmp_path, mamba_state, MAMBA)

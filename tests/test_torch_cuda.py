@@ -6,7 +6,9 @@ kernel against its plain version, and the cp ring over it against the
 monolithic kernel (bitwise) and against its plain route (gradient); a
 reduced serve run and reduced train steps (ODC x minibatch, collective x
 layer, ODC under the overlap schedule, cp) on the card against the same
-run on the CPU.  Each test needs an NVIDIA GPU and
+run on the CPU; the Mamba2 SSD scan kernel against its plain version
+(forward and gradient), and reduced mamba2 serve and train runs on the
+card against the CPU.  Each test needs an NVIDIA GPU and
 skips without one.
 
 This file imports no jax, so it runs on a machine that has only PyTorch:
@@ -559,5 +561,176 @@ def test_reduced_two_tier_train_steps_on_card_match_cpu(cuda, comm):
                              [True, False, False, False, False])
         else:
             assert not any(moved)
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-5 * abs(b), (losses["cuda"], losses["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# the Mamba2 SSD scan kernel (ssm family)
+# ---------------------------------------------------------------------------
+# kernel vs plain, |diff| <= tol * (1 + |plain|): both sum the chunk's
+# decay alike (f64, rounded once) and differ in the order of the f32 sums
+# over Q and n only (the H100 reads 3.4e-7 at mamba2's shapes); bfloat16 y
+# is one bf16 rounding of nearly equal f32 values, at most one step
+# (2**-7 of |y|).  Tighter than the reference's kernel-vs-oracle 1e-4 and
+# 5e-2 (tests/test_kernels.py:198), as chip_smoke.py's SSD_TOL
+SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# the scan's gradient, kernel route (its backward differentiates
+# ssd_chunked) against autograd through the plain version: two f32
+# algorithms.  Each is within 1.31e-3 of the float64 gradient at the test's
+# shape (dA; 2.1e-4 dt, 1.4e-4 the others; measured on the CPU): the
+# chunk's cumulative decay reaches |acum| ~ 180 at Q = 256, whose f32
+# rounding exp() turns into a relative error, so the two may differ by
+# twice that
+SSD_GRAD_TOL = 2e-3
+
+
+def _ssd_inputs(dev, dtype, b, s, h, p, g, n, *, pad=0, seed=0):
+    """Seeded scan inputs as ``mamba2_apply`` makes them; the last ``pad``
+    positions are a padded tail (x, B, C zero, dt 0)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    x = rnd(b, s, h, p) * 0.5
+    dt = torch.nn.functional.softplus(rnd(b, s, h))
+    A = -torch.exp(rnd(h) * 0.3)
+    Bm, Cm = rnd(b, s, g, n) * 0.5, rnd(b, s, g, n) * 0.5
+    if pad:
+        for t in (x, dt, Bm, Cm):
+            t[:, s - pad:] = 0
+    return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,Q,pad", [
+    (2, 64, 4, 16, 1, 8, 16, 0),
+    (1, 128, 8, 32, 2, 16, 32, 0),
+    (2, 96, 6, 8, 3, 4, 32, 0),
+    (1, 64, 2, 64, 2, 64, 64, 0),
+    (2, 512, 8, 64, 1, 128, 256, 0),   # mamba2's head dim and state
+    (1, 384, 4, 64, 1, 128, 256, 0),   # a chunk of 256 over 384: refused
+    (2, 512, 8, 64, 1, 128, 256, 40),  # a padded tail with dt = 0
+    (1, 40, 3, 128, 1, 32, 40, 0),
+])
+def test_ssd_kernel_matches_plain(cuda, dtype, b, s, h, p, g, n, Q, pad):
+    from repro_torch.kernels import ssd_scan as K
+
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, dtype, b, s, h, p, g, n, pad=pad)
+    if s % min(Q, s):
+        with pytest.raises(ValueError, match="divisible"):
+            K.ssd_scan(x, dt, A, Bm, Cm, Q)
+        return
+    before = K.launches
+    y, st = K.ssd_scan(x, dt, A, Bm, Cm, Q)
+    torch.cuda.synchronize()
+    assert K.launches == before + 1
+    ry, rst = K.ssd_scan_plain(x, dt, A, Bm, Cm, Q)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol = SSD_TOL[dtype]
+    for out, ref in ((y.float(), ry.float()), (st, rst)):
+        assert torch.isfinite(out).all()
+        err = (out - ref).abs()
+        assert (err <= tol * (1 + ref.abs())).all(), float(err.max())
+
+
+def test_ssd_kernel_refuses_before_launch(cuda):
+    from repro_torch.kernels import ssd_scan as K
+
+    before = K.launches
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, torch.float32, 1, 32, 2, 160, 1,
+                                   16)
+    with pytest.raises(ValueError, match="at most"):
+        K.ssd_scan(x, dt, A, Bm, Cm, 32)
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, torch.float32, 1, 32, 2, 16, 1, 16)
+    with pytest.raises(TypeError):
+        K.ssd_scan(x, dt, A, Bm.bfloat16(), Cm, 32)
+    with pytest.raises(TypeError):
+        K.ssd_scan(x, dt.double(), A, Bm, Cm, 32)
+    assert K.launches == before
+
+
+def test_ssd_kernel_gradient_matches_plain(cuda):
+    """Kernel forward + ``ssd_chunked`` backward against autograd through
+    the plain version, |diff| <= SSD_GRAD_TOL * (1 + |plain|) in f32."""
+    from repro_torch.kernels import ssd_scan as K
+
+    ins = _ssd_inputs(cuda, torch.float32, 1, 512, 4, 64, 1, 128)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gy = torch.randn(ins[0].shape, generator=gen, device=cuda)
+    gs = torch.randn((1, 4, 64, 128), generator=gen, device=cuda)
+    grads = []
+    for fn in (K.ssd_scan, K.ssd_scan_plain):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        y, st = fn(*leaves, 256)
+        torch.autograd.backward([y, st], [gy, gs])
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.isfinite(a).all()
+        assert ((a - b).abs() <= SSD_GRAD_TOL * (1 + b.abs())).all(), \
+            float((a - b).abs().max())
+
+
+def test_reduced_mamba_serve_on_card_matches_cpu(cuda):
+    """Reduced mamba2 prefill and one decode step on the card (scan
+    kernel) against the CPU (plain version), same weights: logits within
+    1e-4 (products and sums in another order)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ssd_scan as K
+    from repro_torch.models import transformer as T
+    from repro_torch.posttrain.engine import GenerationEngine
+
+    cfg = get_reduced("mamba2-2.7b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(1, cfg.vocab_size, (4, 40),
+                           generator=torch.Generator().manual_seed(1))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        eng = GenerationEngine(cfg, device=dev)
+        p = _to(params, dev)
+        before = K.launches
+        out, cache = eng.prefill(p, eng.prompt_batch(tokens),
+                                 eng.init_cache(4, 48))
+        nxt = out[:, -1].argmax(-1)[:, None]
+        out2, _ = eng.decode(p, cache, nxt, 40)
+        logits[dev] = torch.cat([out, out2], dim=1).cpu()
+        assert K.launches - before == (cfg.num_layers if dev == "cuda"
+                                       else 0)
+    err = (logits["cuda"] - logits["cpu"]).abs()
+    assert (err <= 1e-4 * (1 + logits["cpu"].abs())).all(), float(err.max())
+
+
+@pytest.mark.parametrize("comm,schedule", [("odc", "minibatch"),
+                                           ("collective", "layer"),
+                                           ("odc-overlap", "overlap")])
+def test_reduced_mamba_train_steps_on_card_match_cpu(cuda, comm, schedule):
+    """Two reduced mamba2 train steps with two ranks on the card (scan and
+    ring kernels) against the same steps on the CPU: losses within 1e-5
+    relative, as for qwen."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.ranks import RankGroup
+    from repro_torch.core.train_step import Trainer
+    from repro_torch.data.loader import SyntheticSFTLoader
+    from repro_torch.data.packing import build_minibatch
+    from repro_torch.kernels import ssd_scan as K
+    from repro_torch.models import transformer as T
+
+    cfg = get_reduced("mamba2-2.7b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    loader = SyntheticSFTLoader("longalign", vocab_size=cfg.vocab_size,
+                                world_size=2, minibatch_per_device=2,
+                                max_tokens=128, max_len=120, seed=0)
+    steps = list(loader.steps(2))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, RankGroup.make(2, dev), comm=comm,
+                     schedule=schedule)
+        shards, opt = tr.init_state(_to(params, dev))
+        before = K.launches
+        losses[dev] = []
+        for sd in steps:
+            batch = build_minibatch(sd["plan"], sd["sample_tokens"], 128)
+            counts = [len(a) for a in sd["plan"].assignments]
+            shards, opt, m = tr.step(shards, opt, batch, counts)
+            losses[dev].append(float(m["loss"]))
+        assert (K.launches > before) == (dev == "cuda")
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-5 * abs(b), (losses["cuda"], losses["cpu"])

@@ -3,7 +3,9 @@
 The drivers draw their random weights differently (``torch.Generator``
 against ``jax.random.PRNGKey``), so they are started from one checkpoint
 in the JAX package's format instead: ``JT.init_params`` and
-``adamw_init`` of the reduced qwen-1.5b, saved by
+``adamw_init`` of the reduced qwen-1.5b (and of the reduced mamba2-2.7b,
+the ssm family, under every ``--comm`` but cp, which the port refuses
+for that family), saved by
 ``repro.checkpoint.save_checkpoint`` at step 0 (checkpoints cross both
 ways bitwise, ``tests/test_torch_checkpoint.py``).  Each driver then runs
 two steps with ``--ckpt-dir ... --resume`` for every ``--comm`` the port
@@ -45,6 +47,7 @@ from repro_torch.launch import train as train_cli
 
 REPO = Path(__file__).resolve().parents[1]
 ARCH = "qwen-1.5b"
+MAMBA = "mamba2-2.7b"
 STEPS = 2
 LOSS_RTOL = 1e-5
 # --comm: (the port's world flags, the JAX driver's flags, its devices)
@@ -61,6 +64,7 @@ CASES = {
     "pipe-int8": (["--pipe-stages", "2", "--data-axis", "4"],
                   ["--pipe-stages", "2"], 4),
 }
+MAMBA_CASES = [c for c in CASES if c != "cp"]
 # JAX driver processes running at once
 CONCURRENT = 3
 
@@ -73,28 +77,38 @@ def _one_torch_thread():
     torch.set_num_threads(before)
 
 
-@pytest.fixture(scope="module")
-def ckpt(tmp_path_factory):
-    """A step-0 train state of the reduced qwen-1.5b in the JAX format."""
+def _step0(tmp_path_factory, arch):
+    """A step-0 train state of the reduced ``arch`` in the JAX format."""
     d = tmp_path_factory.mktemp("ckpt")
-    cfg = jconfigs.get_reduced(ARCH)
+    cfg = jconfigs.get_reduced(arch)
     params = JT.init_params(cfg, jax.random.PRNGKey(0))
     jckpt.save_checkpoint(str(d), 0, {"params": params,
                                       "opt": jinit(params)})
     return str(d)
 
 
-def _common(ckpt):
-    return ["--arch", ARCH, "--reduced", "--steps", str(STEPS), "--seed",
+@pytest.fixture(scope="module")
+def ckpt(tmp_path_factory):
+    return _step0(tmp_path_factory, ARCH)
+
+
+@pytest.fixture(scope="module")
+def mamba_ckpt(tmp_path_factory):
+    return _step0(tmp_path_factory, MAMBA)
+
+
+def _common(ckpt, arch=ARCH):
+    return ["--arch", arch, "--reduced", "--steps", str(STEPS), "--seed",
             "0", "--ckpt-dir", ckpt, "--resume"]
 
 
 class _JaxRuns:
-    """The JAX driver's runs, CONCURRENT at a time, in CASES' order."""
+    """The JAX driver's runs of ``arch``, CONCURRENT at a time, in the
+    order of ``comms``."""
 
-    def __init__(self, ckpt, out):
-        self.ckpt, self.out = ckpt, out
-        self.pending = list(CASES)
+    def __init__(self, ckpt, out, arch=ARCH, comms=tuple(CASES)):
+        self.ckpt, self.out, self.arch = ckpt, out, arch
+        self.pending = list(comms)
         self.running = {}
 
     def _start(self, comm):
@@ -106,7 +120,8 @@ class _JaxRuns:
                    XLA_FLAGS=f"--xla_force_host_platform_device_count="
                              f"{devices} --xla_cpu_multi_thread_eigen=false")
         cmd = [sys.executable, "-m", "repro.launch.train",
-               *_common(self.ckpt), "--comm", comm, *flags, "--metrics",
+               *_common(self.ckpt, self.arch), "--comm", comm, *flags,
+               "--metrics",
                str(metrics)]
         self.running[comm] = (subprocess.Popen(
             cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
@@ -148,11 +163,20 @@ def jax_runs(ckpt, tmp_path_factory):
     runs.close()
 
 
-@pytest.mark.parametrize("comm", list(CASES))
-def test_drivers_match_from_one_checkpoint(comm, ckpt, jax_runs, capsys):
+@pytest.fixture(scope="module")
+def mamba_runs(mamba_ckpt, tmp_path_factory):
+    runs = _JaxRuns(mamba_ckpt, tmp_path_factory.mktemp("metrics"), MAMBA,
+                    MAMBA_CASES)
+    runs._fill()
+    yield runs
+    runs.close()
+
+
+def _check(arch, comm, ckpt, jax_runs, capsys):
     port_flags, _, _ = CASES[comm]
     summary = train_cli.run(train_cli.parse_args(
-        [*_common(ckpt), "--comm", comm, *port_flags, "--device", "cpu"]))
+        [*_common(ckpt, arch), "--comm", comm, *port_flags, "--device",
+         "cpu"]))
     out = capsys.readouterr().out
     assert f"resumed from {ckpt} at step 0" in out
     ref, log = jax_runs.losses(comm)
@@ -161,3 +185,14 @@ def test_drivers_match_from_one_checkpoint(comm, ckpt, jax_runs, capsys):
     for a, b in zip(summary["losses"], ref):
         assert abs(a - b) <= LOSS_RTOL * abs(b), (comm, summary["losses"],
                                                   ref)
+
+
+@pytest.mark.parametrize("comm", list(CASES))
+def test_drivers_match_from_one_checkpoint(comm, ckpt, jax_runs, capsys):
+    _check(ARCH, comm, ckpt, jax_runs, capsys)
+
+
+@pytest.mark.parametrize("comm", MAMBA_CASES)
+def test_mamba_drivers_match_from_one_checkpoint(comm, mamba_ckpt,
+                                                 mamba_runs, capsys):
+    _check(MAMBA, comm, mamba_ckpt, mamba_runs, capsys)
