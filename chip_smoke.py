@@ -20,7 +20,14 @@ gradient route at the train shape), mamba2-2.7b served at full width and
 depth (its prefill logits against the plain scan route), and trained at
 full width and 40 of its 64 layers with two ranks as collective x layer
 and ODC x minibatch (step 0 against the plain scan route, one profiled
-step).
+step).  The gather_matmul kernel (the ODC gather fused with its
+consumer matmul) against its plain version at qwen-1.5b's MLP and
+zamba2's in_proj shapes on 2 and 4 ranks, float32 and bfloat16, and its
+refusal of ranks on two devices.  The hybrid family: zamba2-1.2b served
+at full width and depth (38 scans and 6 attention calls per prefill, its
+logits against the plain scan and attention routes) and trained at full
+width and depth with two ranks as collective x layer, ODC x minibatch and
+odc-overlap (one profiled step).
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -170,20 +177,50 @@ SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # train shape
 SSD_GRAD_TOL = 2e-3
 # (b, s, h, p, g, n, Q, padded tail): mamba2's serve prefill and train
-# shapes, the serve shape with a padded tail (dt = 0), and the reference
-# test's g > 1 and zamba2-like cases (tests/test_kernels.py:184-188)
+# shapes, the serve shape with a padded tail (dt = 0), the reference
+# test's g > 1 and zamba2-like cases (tests/test_kernels.py:184-188), and
+# zamba2-1.2b's serve prefill and train shapes (64 heads, p 64, n 64)
 SSD_CASES = {
     "serve prefill": (8, 512, 80, 64, 1, 128, 256, 0),
     "train": (1, 4096, 80, 64, 1, 128, 256, 0),
     "padded tail": (8, 512, 80, 64, 1, 128, 256, 40),
     "g=2": (1, 128, 8, 32, 2, 16, 32, 0),
     "zamba2-like": (1, 64, 2, 64, 2, 64, 64, 0),
+    "zamba2 serve prefill": (8, 512, 64, 64, 1, 64, 256, 0),
+    "zamba2 train": (1, 4096, 64, 64, 1, 64, 256, 0),
 }
 # The mamba2 train runs: TRAIN's settings at full width, depth cut.  Two
 # ranks on one card hold about 28 bytes a parameter (the shards, m and v;
 # each rank's gathered tree and accumulated gradient): 70.5 GiB of the
 # card's 79.2 at 64 layers, 45.3 GiB at 40
 MAMBA_LAYERS = 40
+
+# gather_matmul: (ranks, m, k, f) of each checked and timed call, rank r's
+# x (m, k) and shard (k / ranks, f): qwen-1.5b's MLP projections at a
+# 4096-token microbatch (w_up, w_down), zamba2-1.2b's in_proj, and w_up
+# over 4 ranks
+GM_CASES = {
+    "w_up": (2, 4096, 1536, 8960),
+    "w_down": (2, 4096, 8960, 1536),
+    "zamba2 in_proj": (2, 4096, 2048, 8384),
+    "w_up 4 ranks": (4, 4096, 1536, 8960),
+}
+# kernel vs plain, max |diff| <= tol * max |plain| over each rank's output.
+# float32: both sum each hop's k/n-term dots in f32 in another order (an
+# H100 read 2.7e-6 at w_down, and 0 elsewhere); bfloat16: both
+# sum the exact products of bf16 values in f32 and round once to bf16, so
+# at most one bf16 step (2**-7 relative) apart
+GM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+# The hybrid family: zamba2-1.2b at its published widths and depth, fp32
+# (38 mamba blocks: 6 super-layers of 6 and a tail of 2; one shared
+# attention block after each super-layer), served with WAVE's settings and
+# trained with TRAIN's.  Two ranks hold about 28 bytes a parameter (the
+# shards, m and v; each rank's gathered tree and accumulated gradient),
+# 28.8 GiB at its 1.105 B parameters, and the overlap's gathered trunk and
+# packed shards about 10.3 GiB more: full depth fits the card (peaks on an
+# H100 80GB: 38.7 GiB, and 49.0 under the overlap schedule)
+ZAMBA = "zamba2-1.2b"
 
 
 def fail(msg: str):
@@ -289,6 +326,11 @@ ATTN_CASES = {
     "serve prefill": (8, 512, 544, 12, 2, 128, {"kv_valid": [511] * 8}),
     "serve decode": (8, 1, 544, 12, 2, 128,
                      {"q_pos": [527] * 8, "kv_valid": [527] * 8}),
+    # zamba2-1.2b's shared block: 32 heads of 64 over 32 KV heads (MHA)
+    "zamba2 serve prefill": (8, 512, 544, 32, 32, 64,
+                             {"kv_valid": [511] * 8}),
+    "zamba2 serve decode": (8, 1, 544, 32, 32, 64,
+                            {"q_pos": [527] * 8, "kv_valid": [527] * 8}),
 }
 
 
@@ -334,8 +376,10 @@ def phase_kernel_cases() -> dict:
 # ---------------------------------------------------------------------------
 # phase 3b: the flash gradient, kernel route against the plain route
 # ---------------------------------------------------------------------------
-# the masking cases of tests/test_torch_cuda.py, and the train path's call
+# the masking cases of tests/test_torch_cuda.py, and the train paths' calls:
+# qwen's 12/2 heads of 128 and zamba2's shared block, 32/32 heads of 64
 TRAIN_ATTN = "train packed 4096"
+ZAMBA_TRAIN_ATTN = "zamba2 train packed 4096"
 GRAD_CASES = {
     "causal hd128": (2, 130, 130, 12, 2, 128, {}),
     "window hd64": (1, 45, 70, 4, 2, 64, {"window": 16, "q_pos": [25]}),
@@ -345,15 +389,16 @@ GRAD_CASES = {
 }
 
 
-def _train_attn_case(seed, dtype=torch.float32):
+def _train_attn_case(seed, dtype=torch.float32, H=12, KH=2, hd=128):
     """One attention call of the train path: a 4096-token packed row of
     three LongAlign-like samples and a padding tail, laid out as
     ``data.packing.pack_sequences`` lays it out (positions restart per
-    sample, padding is segment -1 at position 0), qwen's 12/2 heads."""
+    sample, padding is segment -1 at position 0), qwen's 12/2 heads of
+    128 unless others are given."""
     from repro_torch.data.packing import pack_sequences
     import numpy as np
 
-    S, H, KH, hd = TRAIN["max_tokens"], 12, 2, 128
+    S = TRAIN["max_tokens"]
     lens = (1500, 1800, 500)
     row = pack_sequences([np.zeros(n, np.int32) for n in lens], S)
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -384,6 +429,7 @@ def phase_flash_grad() -> dict:
              for i, (name, (B, S, T, H, KH, hd, opt))
              in enumerate(GRAD_CASES.items())}
     cases[TRAIN_ATTN] = _train_attn_case(seed=7)
+    cases[ZAMBA_TRAIN_ATTN] = _train_attn_case(seed=8, H=32, KH=32, hd=64)
     found = {}
     for name, (q, k, v, kw) in cases.items():
         gout = torch.randn(q.shape, device="cuda",
@@ -1168,11 +1214,12 @@ def phase_mamba_serve() -> dict:
 # ---------------------------------------------------------------------------
 # phase 4n: train mamba2-2.7b at full width, depth cut, with two ranks
 # ---------------------------------------------------------------------------
-def _mamba_args(comm, schedule, steps):
+def _train_args(arch, comm, schedule, steps):
+    """TRAIN's settings for ``arch`` through the train driver's parser."""
     from repro_torch.launch import train
 
     return train.parse_args([
-        "--arch", MAMBA, "--seed", str(SEED), "--device", "cuda",
+        "--arch", arch, "--seed", str(SEED), "--device", "cuda",
         "--comm", comm, "--schedule", schedule, "--strategy", "lb_mini",
         "--dataset", "longalign", "--data-axis", str(TRAIN["data_axis"]),
         "--steps", str(steps), "--max-tokens", str(TRAIN["max_tokens"]),
@@ -1202,7 +1249,7 @@ def phase_mamba_train() -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         train.reset_launches()
-        summary = train.run(_mamba_args(comm, schedule, TRAIN["steps"]),
+        summary = train.run(_train_args(MAMBA, comm, schedule, TRAIN["steps"]),
                             cfg=cfg)
         torch.cuda.synchronize()
         got = train.read_launches()
@@ -1235,7 +1282,8 @@ def phase_mamba_train() -> dict:
     prev = ssm.set_ssd_impl(ssm.ssd_chunked)
     try:
         train.reset_launches()
-        plain = train.run(_mamba_args("odc", "minibatch", 1), cfg=cfg)
+        plain = train.run(_train_args(MAMBA, "odc", "minibatch", 1),
+                          cfg=cfg)
         torch.cuda.synchronize()
     finally:
         ssm.set_ssd_impl(prev)
@@ -1254,6 +1302,262 @@ def phase_mamba_train() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"runs": runs}
+
+
+# ---------------------------------------------------------------------------
+# phase 3h: gather_matmul, the kernel against its plain version
+# ---------------------------------------------------------------------------
+def _gm_inputs(n, m, k, f, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [torch.randn((m, k), generator=g, device="cuda").to(dtype)
+          for _ in range(n)]
+    ws = [torch.randn((k // n, f), generator=g, device="cuda").to(dtype)
+          for _ in range(n)]
+    return xs, ws
+
+
+def phase_gather_matmul() -> dict:
+    """The op's path is the op itself (no engine calls it): each case of
+    GM_CASES in float32 and bfloat16 through ``gather_matmul``, one launch
+    for every rank, with the counts set to 0 just before and read just
+    after; then each output against the plain version's, per rank; then
+    the refusal of ranks on two devices."""
+    from repro_torch.kernels import gather_matmul as GM
+    from repro_torch.launch import train
+
+    runs = []
+    train.reset_launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (name, (n, m, k, f)) in enumerate(GM_CASES.items()):
+            xs, ws = _gm_inputs(n, m, k, f, dtype, seed=i)
+            runs.append((name, dtype, xs, ws, GM.gather_matmul(xs, ws)))
+    torch.cuda.synchronize()
+    got = train.read_launches()
+    errs, bad = {}, []
+    for name, dtype, xs, ws, outs in runs:
+        n, m, k, f = GM_CASES[name]
+        ref = GM.gather_matmul_plain(xs, ws)
+        worst_abs = worst_rel = 0.0
+        ok = True
+        for o, r in zip(outs, ref):
+            d = float((o.float() - r.float()).abs().max())
+            scale = float(r.float().abs().max())
+            worst_abs, worst_rel = max(worst_abs, d), max(worst_rel,
+                                                           d / scale)
+            ok &= (o.dtype == dtype and tuple(o.shape) == (m, f)
+                   and bool(torch.isfinite(o.float()).all())
+                   and d <= GM_TOL[dtype] * scale)
+        errs[(name, dtype)] = worst_abs
+        tag = str(dtype).replace("torch.", "")
+        log(f"gather_matmul vs plain [{tag:8s}] {name:15s} {n} ranks, x "
+            f"{(m, k)}, shard {(k // n, f)}: max|diff| {worst_abs:.3e} "
+            f"({worst_rel:.3e} of max|plain|, tol {GM_TOL[dtype]:g}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            bad.append(f"{name} {tag}")
+        del ref
+    want = 2 * len(GM_CASES)
+    others = {k: v for k, v in got.items() if k != "gather_matmul" and v}
+    log(f"gather_matmul launches {got['gather_matmul']} (want {want}: one "
+        f"per call for every rank), other launches {others or 0}")
+    if got["gather_matmul"] != want or others:
+        fail(f"gather_matmul: launches {got}, want {want} of it alone")
+    if bad:
+        fail(f"gather_matmul disagrees with its plain version: {bad}")
+    del runs
+    # ranks on two devices: refused before any launch
+    xs, ws = _gm_inputs(2, 64, 64, 64, torch.float32, seed=9)
+    before = GM.launches
+    try:
+        GM.gather_matmul([xs[0], xs[1].cpu()], ws)
+    except NotImplementedError as e:
+        log(f"gather_matmul refuses ranks on cuda:0 and cpu: {e}")
+    else:
+        fail("gather_matmul took ranks on two devices")
+    if GM.launches != before:
+        fail("gather_matmul launched for ranks on two devices")
+    torch.cuda.empty_cache()
+    return {"launches": got, "errs": errs}
+
+
+# ---------------------------------------------------------------------------
+# phase 4z: serve zamba2-1.2b at full width and depth, then its wave
+# prefill on the plain scan and attention routes
+# ---------------------------------------------------------------------------
+def phase_zamba_serve() -> dict:
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve, train
+    from repro_torch.models import layers, ssm
+    from repro_torch.models import transformer as T
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = serve.parse_args([
+        "--arch", ZAMBA, "--seed", str(SEED), "--device", "cuda", "--dtype",
+        "float32", "--batch", str(WAVE["batch"]), "--prompt-len",
+        str(WAVE["prompt_len"]), "--gen", str(WAVE["gen"])])
+    torch.cuda.reset_peak_memory_stats()
+    train.reset_launches()
+    summary = serve.run(args)
+    torch.cuda.synchronize()
+    got = train.read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    L = summary["num_layers"]
+    _, n_super, tail = T.hybrid_split(get_config(ZAMBA))
+    calls = summary["prefill_calls"]
+    want_scan = L * calls
+    want_attn = n_super * (calls + summary["decode_steps"])
+    others = {k: v for k, v in got.items()
+              if k not in ("ssd_scan", "flash_attention") and v}
+    log(f"serve {ZAMBA} wave ({L} layers: {n_super} super-layers and a "
+        f"tail of {tail}): prefill {summary['prefill_tok_s']:.1f} tok/s, "
+        f"decode {summary['decode_tok_s']:.1f} tok/s, ssd_scan launches "
+        f"{got['ssd_scan']} (want {L} x {calls} prefill = {want_scan}), "
+        f"flash_attention launches {got['flash_attention']} (want "
+        f"{n_super} x ({calls} prefill + {summary['decode_steps']} decode) "
+        f"= {want_attn}), other launches {others or 0}, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB, first ids {summary['first_ids'][:8]}")
+    if L != 38 or got["ssd_scan"] != want_scan or want_scan == 0 \
+            or got["flash_attention"] != want_attn:
+        fail(f"serve {ZAMBA}: launches {got} over {L} layers, want "
+             f"{want_scan} scans and {want_attn} attention calls over 38")
+    if others:
+        fail(f"serve {ZAMBA}: launched {others}")
+    if not summary["ids_in_vocab"]:
+        fail(f"serve {ZAMBA}: generated ids outside the vocabulary")
+
+    # the wave prefill again, on the kernel route and on the plain route
+    cfg, params, tokens = serve.build(args)
+    engine = serve.make_engine(cfg, args)
+    batch = engine.prompt_batch(tokens)
+    B, S = tokens.shape
+    train.reset_launches()
+    kern, cache = engine.prefill(params, batch,
+                                 engine.init_cache(B, S + args.gen))
+    torch.cuda.synchronize()
+    per_prefill = train.read_launches()
+    prev_ssd = ssm.set_ssd_impl(ssm.ssd_chunked)
+    prev_attn = layers.set_attention_impl(fa.flash_attention_plain)
+    try:
+        train.reset_launches()
+        plain, pcache = engine.prefill(params, batch,
+                                       engine.init_cache(B, S + args.gen))
+        torch.cuda.synchronize()
+        plain_launches = train.read_launches()
+    finally:
+        ssm.set_ssd_impl(prev_ssd)
+        layers.set_attention_impl(prev_attn)
+    diff = float((kern[:, -1] - plain[:, -1]).abs().max())
+    state = _rel_err(cache["mamba"]["ssm"], pcache["mamba"]["ssm"])
+    finite = bool(torch.isfinite(kern).all())
+    log(f"{ZAMBA} wave prefill: launches {per_prefill['ssd_scan']} scans, "
+        f"{per_prefill['flash_attention']} attention calls (want {L}, "
+        f"{n_super}); last-position logits {tuple(kern[:, -1].shape)}, "
+        f"kernel vs plain scan and attention routes max|diff| {diff:.3e} "
+        f"(tol {LOGITS_TOL:g}), final states max|diff| {state[0]:.3e} "
+        f"({state[1]:.3e} of 1+|plain|), finite {finite}, launches on the "
+        f"plain route {sum(plain_launches.values())}")
+    if per_prefill["ssd_scan"] != L \
+            or per_prefill["flash_attention"] != n_super:
+        fail(f"{ZAMBA} prefill: launches {per_prefill}")
+    if not finite or diff > LOGITS_TOL or any(plain_launches.values()):
+        fail(f"{ZAMBA} prefill logits: kernel and plain routes disagree")
+    del plain, pcache
+    tok = kern[:, -1].argmax(-1)[:, None]
+    _profile_decode(engine, params, cache, tok, S)
+    del params, engine, cache, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": got, "summary": summary, "peak": peak}
+
+
+# ---------------------------------------------------------------------------
+# phase 4y: train zamba2-1.2b at full width and depth with two ranks
+# ---------------------------------------------------------------------------
+def phase_zamba_train() -> dict:
+    """collective x layer, ODC x minibatch and odc-overlap through the train
+    entry point, held to each other as qwen's runs are and to their launch
+    counts; step 0 again on the plain scan and attention routes, its loss
+    and gradient norm within CP_PLAIN_RTOL; one profiled step of ODC x
+    minibatch."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import fsdp
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models import layers, ssm
+
+    cfg = get_config(ZAMBA)
+    log(f"train {ZAMBA}: full width and depth, {cfg.num_layers} layers "
+        f"({cfg.num_params() / 1e9:.3f} B parameters)")
+    runs = {}
+    for comm, schedule in TRAIN_CONFIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        train.reset_launches()
+        summary = train.run(_train_args(ZAMBA, comm, schedule,
+                                        TRAIN["steps"]))
+        torch.cuda.synchronize()
+        got = train.read_launches()
+        dims = summary["dims"]
+        if any(fsdp.get(dims, p) is None for p in fsdp.tree_paths(dims)):
+            fail(f"{ZAMBA} on {TRAIN['data_axis']} ranks replicates a leaf")
+        want = _expected_launches(cfg, comm, schedule, summary, dims)
+        peak = torch.cuda.max_memory_allocated()
+        tag = f"{ZAMBA} {comm} x {summary['schedule']}"
+        log(f"train {tag} ({cfg.num_layers} layers): losses "
+            f"{summary['losses']}, step s "
+            f"{[round(t, 3) for t in summary['step_s']]}, tokens "
+            f"{[st['tokens'] for st in summary['steps']]}, microbatches "
+            f"{[(st['microbatches'], st['counts']) for st in summary['steps']]}"
+            f", {summary['tok_s']:.1f} tok/s, peak memory "
+            f"{peak / 2 ** 30:.2f} GiB, grad norms "
+            f"{[st['grad_norm'] for st in summary['steps']]}, launches {got} "
+            f"(want {want})")
+        if not all(math.isfinite(x) for x in summary["losses"]):
+            fail(f"train {tag}: a loss is not finite")
+        if got != want:
+            fail(f"train {tag}: kernel launches {got}, want {want}")
+        summary["peak_bytes"] = peak
+        summary["launches"] = got
+        runs[tag] = summary
+    _hold_to_first(runs)
+    odc_run = runs[f"{ZAMBA} odc x minibatch"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    prev_ssd = ssm.set_ssd_impl(ssm.ssd_chunked)
+    prev_attn = layers.set_attention_impl(fa.flash_attention_plain)
+    try:
+        train.reset_launches()
+        plain = train.run(_train_args(ZAMBA, "odc", "minibatch", 1))
+        torch.cuda.synchronize()
+    finally:
+        ssm.set_ssd_impl(prev_ssd)
+        layers.set_attention_impl(prev_attn)
+    l0, p0 = odc_run["losses"][0], plain["losses"][0]
+    n0, pn0 = odc_run["steps"][0]["grad_norm"], plain["steps"][0]["grad_norm"]
+    rel_l, rel_n = abs(l0 - p0) / abs(p0), abs(n0 - pn0) / abs(pn0)
+    model_launches = {name: plain["launches"][name]
+                      for name in ("ssd_scan", "flash_attention")}
+    log(f"train {ZAMBA} odc x minibatch step 0, kernel route against the "
+        f"plain scan and attention routes (launches there "
+        f"{model_launches}): loss {l0!r} vs {p0!r} ({rel_l:.2e} relative), "
+        f"gradient norm {n0!r} vs {pn0!r} ({rel_n:.2e}) "
+        f"(tol {CP_PLAIN_RTOL:g})")
+    if any(model_launches.values()) or max(rel_l, rel_n) > CP_PLAIN_RTOL:
+        fail(f"train {ZAMBA}: step 0 differs from the plain scan and "
+             f"attention routes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile = _profile_train_step("odc", "minibatch", cfg=cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "profile": profile}
 
 
 # ---------------------------------------------------------------------------
@@ -1471,20 +1775,33 @@ def _profile_decode(engine, params, cache, tok, start, steps=8):
 def _expected_launches(cfg, comm, schedule, summary, dims):
     """Kernel launches a train run must make, from the model's leaves and
     layers and the run's microbatches, steps and cp degree.  Every layer
-    runs its attention (the ssm family: its SSD scan) twice per microbatch
+    runs its attention (the ssm family: its SSD scan; the hybrid family:
+    the scan in each of its L mamba blocks and attention in each of its
+    n_super invocations of the shared block) twice per microbatch
     (forward, and the recompute of the backward pass); one ring launch
-    serves every rank."""
+    serves every rank.  The per-layer leaves are those of one block; the
+    top-level ones are every leaf that is not stacked (the hybrid's
+    shared block among them)."""
     from repro_torch.core import fsdp
+    from repro_torch.models import transformer as T
 
     L = cfg.num_layers
     sharded = [p for p in fsdp.tree_paths(dims)
                if fsdp.get(dims, p) is not None]
-    top = [p for p in sharded if p[0] != fsdp.STACK_KEY]
-    per_layer = len(sharded) - len(top)
+    top = [p for p in sharded if fsdp.stack_depth(p) == 0]
+    block = fsdp.layer_dims(dims, fsdp.trunk_group(dims))
+    per_layer = sum(fsdp.get(block, p) is not None
+                    for p in fsdp.tree_paths(block))
+    # blocks outside the chained rings under the overlap schedule: the
+    # hybrid's tail
+    tail = T.hybrid_split(cfg)[2] if cfg.family == "hybrid" else 0
     from repro_torch.launch.train import KERNELS
 
-    # the kernel every layer runs in its forward and in its recompute
-    kern = "ssd_scan" if cfg.family == "ssm" else "flash_attention"
+    # the kernels every microbatch runs, each in its forward and in its
+    # recompute: per layer, or per shared-block invocation
+    per_mb = ({"ssd_scan": L} if cfg.family == "ssm" else
+              {"ssd_scan": L, "flash_attention": T.hybrid_split(cfg)[1]}
+              if cfg.family == "hybrid" else {"flash_attention": L})
     want = dict.fromkeys(KERNELS, 0)
     ring = comm in ("odc", "odc-overlap", "cp")
     cp = summary.get("cp", 1)
@@ -1499,7 +1816,8 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
             T, g = summary["tiers"]
             both = [p for p in sharded
                     if not isinstance(fsdp.get(dims, p), fsdp.IntraDim)]
-            want[kern] += 2 * L * sum(st["counts"])
+            for kern, k in per_mb.items():
+                want[kern] += 2 * k * sum(st["counts"])
             if comm == "pipe-int8":
                 want["odc_gather_q8"] += len(both) * g
                 want["odc_scatter_accumulate_q8"] += len(both) * g
@@ -1515,9 +1833,12 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
             # once each way, and every layer runs its attention in the
             # forward and the recompute
             M = st["microbatches"]
-            want[kern] += 2 * L * summary["world"] * M
-            want["odc_gather"] += M * len(top) * ring
-            want["odc_scatter_accumulate"] += M * len(top) * ring
+            for kern, k in per_mb.items():
+                want[kern] += 2 * k * summary["world"] * M
+            want["odc_gather"] += M * (len(top) + 2 * tail * per_layer) \
+                * ring
+            want["odc_scatter_accumulate"] += \
+                M * (len(top) + tail * per_layer) * ring
             want["odc_gather_layers"] += M * ring
             want["odc_scatter_accumulate_layers"] += M * ring
         elif schedule == "minibatch" and cp > 1:
@@ -1539,7 +1860,8 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
         elif schedule == "minibatch":
             # each rank runs only its real microbatches; every leaf is
             # gathered once and scattered once per step
-            want[kern] += 2 * L * sum(st["counts"])
+            for kern, k in per_mb.items():
+                want[kern] += 2 * k * sum(st["counts"])
             want["odc_gather"] += len(sharded) * ring
             want["odc_scatter_accumulate"] += len(sharded) * ring
         else:
@@ -1547,7 +1869,8 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
             # top-level leaves once per microbatch, each layer's leaves in
             # the forward and again in the recompute
             M = st["microbatches"]
-            want[kern] += 2 * L * summary["world"] * M
+            for kern, k in per_mb.items():
+                want[kern] += 2 * k * summary["world"] * M
             want["odc_gather"] += M * (len(top) + 2 * L * per_layer) * ring
             want["odc_scatter_accumulate"] += \
                 M * (len(top) + L * per_layer) * ring
@@ -2543,7 +2866,48 @@ def _ssd_times(name) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
-def phase_times(errs, grad_errs, serve_runs, train_runs) -> list:
+def _gm_times(name, dtype, err) -> dict:
+    """Kernel, plain and library times of gather_matmul at one of
+    GM_CASES' shapes, and its bound: the larger of the operations (2 m k f
+    per rank, every rank) at the card's peak for the type (f32: the CUDA
+    cores' 67 TFLOP/s; bf16: the dense tensor-core 989 TFLOP/s, which the
+    kernel does not use) and the bytes (x and the shards read once, the
+    outputs written once) at 3.35 TB/s.  Library: per rank one
+    ``torch.matmul(x, torch.cat(shards))`` (TF32 off), and the matmul
+    alone on a W concatenated beforehand."""
+    from repro_torch.kernels import gather_matmul as GM
+
+    n, m, k, f = GM_CASES[name]
+    xs, ws = _gm_inputs(n, m, k, f, dtype, seed=99)
+    ms = _time_ms(lambda: GM.gather_matmul(xs, ws))
+    plain_ms = _time_ms(lambda: GM.gather_matmul_plain(xs, ws))
+    lib_ms = _time_ms(lambda: [torch.matmul(x, torch.cat(ws)) for x in xs])
+    W = torch.cat(ws)
+    mm_ms = _time_ms(lambda: [torch.matmul(x, W) for x in xs])
+    es = xs[0].element_size()
+    ops = 2 * m * k * f * n
+    nbytes = n * (m * k + (k // n) * f + m * f) * es
+    ops_ms = ops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    tag = str(dtype).replace("torch.", "")
+    shape_s = (f"{name}: {n} ranks, x {(m, k)}, shard {(k // n, f)} {tag}")
+    log(f"time gather_matmul {shape_s}: kernel {ms:.4f} ms "
+        f"({ops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
+        f"({bound_by}: {ops / 1e9:.1f} GFLOP at "
+        f"{PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s; bytes {bytes_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, library (cat + matmul per rank) "
+        f"{lib_ms:.4f} ms, matmul alone {mm_ms:.4f} ms, kernel/bound "
+        f"{ms / bound_ms:.1f}x, kernel/library {ms / lib_ms:.2f}x")
+    del xs, ws, W
+    torch.cuda.empty_cache()
+    return {"shape": shape_s, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "library_matmul_alone_ms": mm_ms}
+
+
+def phase_times(errs, grad_errs, gm_errs, serve_runs, train_runs) -> list:
     """One record per kernel: its numbers at the first shape, and at each
     measured shape under ``per_shape``; launches over the serve and train
     runs, by path under ``launches_by_path``."""
@@ -2556,12 +2920,19 @@ def phase_times(errs, grad_errs, serve_runs, train_runs) -> list:
             by_path[name][f"train {tag}"] = run["launches"][name]
 
     shapes = []
-    for name in ("serve prefill", "serve decode", "train"):
-        if name == "train":
-            q, k, v, kw = _train_attn_case(seed=99)
-            shape = (f"train: packed q {tuple(q.shape)} kv {tuple(k.shape)} "
-                     f"float32, segments of 1500/1800/500 + padding")
-            err, grad_err = grad_errs[TRAIN_ATTN]
+    for name in ("serve prefill", "serve decode", "train",
+                 "zamba2 serve prefill", "zamba2 serve decode",
+                 "zamba2 train"):
+        grad_err = None
+        if name in ("train", "zamba2 train"):
+            heads = (dict(H=32, KH=32, hd=64) if name == "zamba2 train"
+                     else {})
+            q, k, v, kw = _train_attn_case(seed=99, **heads)
+            shape = (f"{name}: packed q {tuple(q.shape)} kv "
+                     f"{tuple(k.shape)} float32, segments of 1500/1800/500 "
+                     f"+ padding")
+            err, grad_err = grad_errs[TRAIN_ATTN if name == "train"
+                                      else ZAMBA_TRAIN_ATTN]
         else:
             B, S, T, H, KH, hd, opt = ATTN_CASES[name]
             q, k, v, kw = _attn_case(B, S, T, H, KH, hd, torch.float32,
@@ -2579,7 +2950,7 @@ def phase_times(errs, grad_errs, serve_runs, train_runs) -> list:
         shapes.append({"shape": shape, "max_abs_err": err,
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": lib_ms})
-        if name == "train":  # dq/dk/dv of the kernel route vs the plain
+        if grad_err is not None:  # dq/dk/dv, kernel route vs plain route
             shapes[-1]["grad_max_abs_err"] = grad_err
         del q, k, v
     records = [{"name": "flash_attention", "route": "cuda",
@@ -2636,13 +3007,24 @@ def phase_times(errs, grad_errs, serve_runs, train_runs) -> list:
                         "launches": sum(by_path[name].values()),
                         "launches_by_path": by_path[name], **rec,
                         "per_shape": [rec]})
-    ssd = [_ssd_times(name) for name in ("serve prefill", "train")]
+    ssd = [_ssd_times(name) for name in ("serve prefill", "train",
+                                         "zamba2 serve prefill",
+                                         "zamba2 train")]
     records.append({"name": "ssd_scan", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                     "replaces": "src/repro/kernels/ssd_scan.py:83",
                     "launches": sum(by_path["ssd_scan"].values()),
                     "launches_by_path": by_path["ssd_scan"], **ssd[0],
                     "per_shape": ssd})
+    gm = [_gm_times(name, dtype, gm_errs[(name, dtype)])
+          for dtype in (torch.float32, torch.bfloat16) for name in GM_CASES]
+    records.append({"name": "gather_matmul", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "gather_matmul.cu",
+                    "replaces": "src/repro/kernels/gather_matmul.py:92",
+                    "launches": sum(by_path["gather_matmul"].values()),
+                    "launches_by_path": by_path["gather_matmul"], **gm[0],
+                    "per_shape": gm})
     return records
 
 
@@ -2663,8 +3045,11 @@ def main() -> int:
     phase_q8_rings()
     phase_ssd_kernel()
     phase_ssd_grad()
+    gm = phase_gather_matmul()
     mamba_served = phase_mamba_serve()
     mamba_trained = phase_mamba_train()
+    zamba_served = phase_zamba_serve()
+    zamba_trained = phase_zamba_train()
     served = phase_serve()
     trained = phase_train()
     cp_trained = phase_cp_train()
@@ -2675,9 +3060,12 @@ def main() -> int:
     for tag, run in tiers["runs"].items():
         runs[tag] = run
     runs.update(mamba_trained["runs"])
-    records = phase_times(errs, grad_errs, {
+    runs.update(zamba_trained["runs"])
+    records = phase_times(errs, grad_errs, gm["errs"], {
         "serve": served["launches"],
-        f"serve {MAMBA}": mamba_served["launches"]}, runs)
+        f"serve {MAMBA}": mamba_served["launches"],
+        f"serve {ZAMBA}": zamba_served["launches"],
+        "gather_matmul": gm["launches"]}, runs)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
     print(env["smi"])
     print(json.dumps({"kernels": records}))

@@ -3,7 +3,8 @@
 The JAX side hands over its parameters or caches as numpy arrays
 (``jax.tree.map(np.asarray, params)``); ``params_from_numpy`` turns such a
 nested dict into the port's dict of tensors, same keys, same stacked
-``(L, ...)`` leaves, so both packages compute with the same weights.
+leaves (``(L, ...)``; the hybrid's ``(n_super, P, ...)`` and ``(tail,
+...)``), so both packages compute with the same weights.
 ``train_state_from_numpy`` does the same for a train state, parameters and
 AdamW state, and shards it over a trainer's ranks.
 """

@@ -400,33 +400,48 @@ def _gather_trees(backend, trees, dims, order, differentiable):
 
 def trainable(tree):
     """(compute tree, gradient tree) over a tree of tensors: each leaf
-    becomes a leaf tensor that requires grad, and each stacked leaf under
-    ``layers`` becomes a list of per-layer leaf tensors (views), so that a
-    layer's gradient lands in its slice without a full-size temporary.
-    Every ``.grad`` is preset to a view of a zeroed buffer, which autograd
-    then accumulates into in place; the gradient tree holds the buffers."""
-    def leaf(x):
-        t = x.detach().requires_grad_(True)
-        g = torch.zeros_like(x)
-        t.grad = g
-        return t, g
-
-    def stacked(x):
-        g = torch.zeros_like(x)
-        views = []
-        for i in range(x.shape[0]):
-            t = x[i].detach().requires_grad_(True)
-            t.grad = g[i]
-            views.append(t)
-        return views, g
+    becomes a leaf tensor that requires grad, and each stacked leaf (a
+    group of ``fsdp.stack_depth`` > 0) becomes nested lists, one level per
+    stack dim, of per-layer leaf tensors (views), so that a layer's
+    gradient lands in its slice without a full-size temporary.  Every
+    ``.grad`` is preset to a view of a zeroed buffer, which autograd then
+    accumulates into in place; the gradient tree holds the buffers."""
+    def views(x, g, depth):
+        if depth == 0:
+            t = x.detach().requires_grad_(True)
+            t.grad = g
+            return t
+        return [views(x[i], g[i], depth - 1) for i in range(x.shape[0])]
 
     compute, grads = {}, {}
     for path in fsdp.tree_paths(tree):
         x = fsdp.get(tree, path)
-        t, g = stacked(x) if path[0] == fsdp.STACK_KEY else leaf(x)
-        fsdp.put(compute, path, t)
+        g = torch.zeros_like(x)
+        fsdp.put(compute, path, views(x, g, fsdp.stack_depth(path)))
         fsdp.put(grads, path, g)
     return compute, grads
+
+
+def _stacked(tree):
+    """A tree whose leaves may be lists of per-layer views -> the same
+    tree with each list stacked (differentiably) into one tensor."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return torch.stack([_stacked(v) for v in tree])
+    return tree
+
+
+def _unit_dims(dims):
+    """The dims of every subtree that ``pxform`` is handed, keyed by its
+    top-level keys: the top-level leaves, and one layer (block) of each
+    stacked group (the hybrid's ``mamba`` and ``mamba_tail`` blocks have
+    the same leaves, sharded alike, so they share a key)."""
+    units = {frozenset(fsdp.top_dims(dims)): fsdp.top_dims(dims)}
+    for group in fsdp.stacked_groups(dims):
+        d = fsdp.layer_dims(dims, group)
+        units[frozenset(d)] = d
+    return units
 
 
 def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
@@ -459,8 +474,11 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
     if schedule == "1f1b" and pipe_stages < 1:
         raise ValueError(f"schedule '1f1b' needs pipe_stages >= 1, got "
                          f"{pipe_stages}")
-    top_dims = {k: v for k, v in dims.items() if k != fsdp.STACK_KEY}
-    lay_dims = fsdp.layer_dims(dims)
+    units = _unit_dims(dims)
+    # the group the overlap schedule's prefetch walks, one slice of its
+    # first stack dim at a time (a layer, or a hybrid super-layer)
+    trunk = fsdp.trunk_group(dims)
+    slice_dims = fsdp.layer_dims(dims, trunk, 1)
 
     def zero(t):
         return torch.zeros((), dtype=torch.float32, device=t.device)
@@ -517,8 +535,8 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
     def pxform(trees):
         """Gather every sharded leaf of these per-rank subtrees (the
         top-level leaves, or one layer's slice) through ``param_gather``."""
-        d = lay_dims if set(trees[0]) == set(lay_dims) else top_dims
-        return _gather_trees(backend, trees, d, order, True)
+        return _gather_trees(backend, trees, units[frozenset(trees[0])],
+                             order, True)
 
     chained = schedule == "overlap" and chain is not None
 
@@ -532,7 +550,7 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
             chain.begin_step(shards)
             pairs = [trainable(_unpacked(s, chain.packing)) for s in shards]
             for c, _ in pairs:
-                c.setdefault(fsdp.STACK_KEY, {})
+                c.setdefault(chain.packing.group, {})
         else:
             pairs = [trainable(s) for s in shards]
         compute = [c for c, _ in pairs]
@@ -545,7 +563,7 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
                                      requires_grad=True)
                 prefetch = overlap.ChainedPrefetch(chain, anchor)
             elif schedule == "overlap":
-                prefetch = _LayerPrefetch(backend, lay_dims, order)
+                prefetch = _LayerPrefetch(backend, slice_dims, order)
             else:
                 prefetch = None
             outs = loss_ranks(compute, [microbatches[r][j] for r in range(n)],
@@ -563,7 +581,7 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
         if chained:
             for g, trunk in zip(grads, chain.end_step()):
                 for path in fsdp.tree_paths(trunk):
-                    fsdp.put(g, (fsdp.STACK_KEY,) + path,
+                    fsdp.put(g, (chain.packing.group,) + path,
                              fsdp.get(trunk, path))
         _sum_leftover(grads, dims, backend)
         return lsums, toks, grads
@@ -592,16 +610,18 @@ def _sum_leftover(grads, dims, backend):
 
 class _LayerPrefetch:
     """The overlap schedule's hook without chained rings: issuing layer i
-    gathers its sharded leaves through ``param_gather`` (for
-    ``collective``, plain concatenations), and the gathered trees are what
-    the layer computes with."""
+    (a hybrid super-layer: its P blocks' views stacked) gathers its
+    sharded leaves through ``param_gather`` (for ``collective``, plain
+    concatenations), and the gathered trees are what the layer computes
+    with."""
 
-    def __init__(self, backend, lay_dims, order):
-        self.backend, self.lay_dims, self.order = backend, lay_dims, order
+    def __init__(self, backend, slice_dims, order):
+        self.backend, self.slice_dims, self.order = backend, slice_dims, \
+            order
 
     def issue(self, layer, trees):
-        return _gather_trees(self.backend, trees, self.lay_dims, self.order,
-                             True)
+        return _gather_trees(self.backend, [_stacked(t) for t in trees],
+                             self.slice_dims, self.order, True)
 
     def materialize(self, full):
         return full
@@ -609,13 +629,13 @@ class _LayerPrefetch:
 
 def _unpacked(shard_tree, packing):
     """A rank's shard tree without the per-layer leaves that the chained
-    rings carry (the top-level leaves, and any replicated per-layer
-    leaf)."""
-    out = {k: v for k, v in shard_tree.items() if k != fsdp.STACK_KEY}
+    rings carry (every other group, and any replicated leaf of the chained
+    group)."""
+    out = {k: v for k, v in shard_tree.items() if k != packing.group}
     layers = {}
     for path in packing.replicated:
-        fsdp.put(layers, path, fsdp.get(shard_tree[fsdp.STACK_KEY], path))
-    out[fsdp.STACK_KEY] = layers
+        fsdp.put(layers, path, fsdp.get(shard_tree[packing.group], path))
+    out[packing.group] = layers
     return out
 
 

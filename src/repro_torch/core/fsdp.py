@@ -7,8 +7,12 @@ the data axis the only mesh axis: ``embed`` on dim 1; ``lm_head``,
 ``wq``, ``wk``, ``wv``, ``w_gate``, ``w_up`` and mamba's ``in_proj`` on
 dim 0; ``wo``, ``w_down``, ``out_proj`` and ``conv_w`` on dim 1; every
 other leaf (the 1-D leaves: norms, and mamba's ``conv_b``, ``dt_bias``,
-``A_log``, ``D`` and ``gate_norm``) on its last dim; stacked ``(L, ...)``
-leaves under ``layers`` one dim later.  A dim that the rank
+``A_log``, ``D`` and ``gate_norm``) on its last dim; a stacked leaf as many
+dims later as its group's stack depth (``stack_depth``, the rule of
+``repro.core.fsdp.stack_spec`` and ``gspmd._stack_rank_for_path``):
+``layers`` (L, ...) of the dense and ssm families 1; the hybrid family's
+``mamba`` (n_super, P, ...) 2, ``mamba_tail`` (tail, ...) 1 and
+``shared_attn`` 0 (one block, not stacked).  A dim that the rank
 count does not divide is not sharded (``sanitize_spec``): the leaf is
 replicated, every rank holds all of it, and its gradient is summed over
 the ranks.
@@ -33,7 +37,9 @@ from typing import List, Optional, Sequence
 
 import torch
 
-STACK_KEY = "layers"
+#: stack depth of each top-level parameter group (the groups of every
+#: ported family); any other top-level key is not stacked
+STACK_DEPTH = {"layers": 1, "mamba": 2, "mamba_tail": 1, "shared_attn": 0}
 _DIM0 = ("lm_head", "wq", "wk", "wv", "w_gate", "w_up", "in_proj")
 _DIM1 = ("embed", "wo", "w_down", "out_proj", "conv_w")
 
@@ -58,6 +64,25 @@ def shifted(d, k: int):
     return IntraDim(d + k, d.intra) if isinstance(d, IntraDim) else d + k
 
 
+def stack_depth(path: Sequence[str]) -> int:
+    """Leading stacked-layer dims of the leaf at ``path`` (a key tuple)."""
+    return STACK_DEPTH.get(path[0], 0) if len(path) > 1 else 0
+
+
+def stacked_groups(tree) -> List[str]:
+    """The top-level keys of ``tree`` whose leaves are stacked, in sorted
+    key order."""
+    return [k for k in sorted(tree) if STACK_DEPTH.get(k, 0)
+            and isinstance(tree[k], dict)]
+
+
+def trunk_group(tree) -> str:
+    """The stacked group that the overlap schedule's prefetch and chained
+    rings walk by its first stack dim: the deepest of ``tree``'s stacked
+    groups (``layers``, or the hybrid's ``mamba``, by its super-layers)."""
+    return max(stacked_groups(tree), key=STACK_DEPTH.get)
+
+
 def leaf_dim(path: Sequence[str], shape, n: int,
              intra: Optional[int] = None) -> Optional[int]:
     """The sharded dim of the leaf at ``path`` (a key tuple) with this
@@ -65,7 +90,7 @@ def leaf_dim(path: Sequence[str], shape, n: int,
     ``intra``: the intra tier's size under a two-tier layout of n ranks
     (the last rule's leaves then shard over it alone: ``IntraDim``)."""
     name = path[-1]
-    stacked = 1 if path[0] == STACK_KEY else 0
+    stacked = stack_depth(path)
     logical = len(shape) - stacked
     if name in _DIM0:
         d = 0
@@ -95,9 +120,17 @@ def leaf_dims(params, n: int, intra: Optional[int] = None):
     return _map(lambda p, x: leaf_dim(p, tuple(x.shape), n, intra), params)
 
 
-def layer_dims(dims):
-    """The dims of one layer's slice of the stacked leaves."""
-    return _map(lambda p, d: shifted(d, -1), dims[STACK_KEY])
+def layer_dims(dims, group: str = "layers", depth: Optional[int] = None):
+    """The dims of one slice of ``group``'s stacked leaves, ``depth``
+    stack dims in (default: all of them, one layer)."""
+    k = STACK_DEPTH[group] if depth is None else depth
+    return _map(lambda p, d: shifted(d, -k), dims[group])
+
+
+def top_dims(dims):
+    """The dims of the leaves that are not stacked (``shared_attn``
+    included)."""
+    return {k: v for k, v in dims.items() if k not in stacked_groups(dims)}
 
 
 def pieces(d, n: int) -> int:

@@ -4,7 +4,10 @@ microbatch round, beside the compute on a side stream.
 
 Per train step (``ChainedLayers.begin_step``): each rank's sharded
 per-layer leaves are packed into one (L, c_flat) tensor (``LayerPacking``:
-the leaves' layer shards side by side, in ``fsdp.tree_paths`` order), and
+the leaves' layer shards side by side, in ``fsdp.tree_paths`` order; for
+the hybrid family a "layer" is a super-layer of P mamba blocks, L =
+n_super, and the tail and the shared block move through the single-leaf
+rings with the top-level leaves), and
 the step owns three per-rank buffers for its whole length: the packed
 shards, the gathered trunk (L, n*c_flat) and the packed gradient
 (L, c_flat), of which the gradient tree's trunk leaves are views.  The
@@ -77,19 +80,24 @@ from repro_torch.kernels import odc_scatter as kscatter
 class LayerPacking:
     """Where each sharded per-layer leaf's layer shard lies in a rank's
     packed (L, c_flat) row, and the conversions between the packed
-    buffers and the leaves.  Replicated per-layer leaves (a dim the rank
-    count does not divide) are not packed."""
+    buffers and the leaves.  The chained group is ``fsdp.trunk_group``:
+    ``layers``, whose L layers are the rows, or the hybrid's ``mamba``,
+    whose L = n_super super-layers are (each row the shards of a
+    super-layer's P blocks, a layer's leaves of shape (P, ...)).
+    Replicated per-layer leaves (a dim the rank count does not divide) are
+    not packed."""
 
     def __init__(self, shapes, dims, n: int):
         self.n = n
+        self.group = fsdp.trunk_group(dims)
         self.num_layers = None
         self.entries = []  # (path in the layer tree, layer dim, shard shape,
         #                     offset, size)
         self.replicated = []  # paths of replicated per-layer leaves
-        lay = dims[fsdp.STACK_KEY]
+        lay = dims[self.group]
         off = 0
         for path in fsdp.tree_paths(lay):
-            shape = tuple(fsdp.get(shapes[fsdp.STACK_KEY], path).shape)
+            shape = tuple(fsdp.get(shapes[self.group], path).shape)
             self.num_layers = shape[0]
             d = fsdp.get(lay, path)
             if d is None:
@@ -200,12 +208,12 @@ class ChainedLayers:
     def begin_step(self, shards):
         p, L, n = self.packing, self.packing.num_layers, self.n
         dev = self.device
-        dtype = fsdp.get(shards[0], (fsdp.STACK_KEY,) + p.entries[0][0]).dtype
+        dtype = fsdp.get(shards[0], (p.group,) + p.entries[0][0]).dtype
         self.packed = []
         with record_function("overlap.pack"):
             for s in shards:
                 row = torch.empty((L, p.c_flat), dtype=dtype, device=dev)
-                p.pack(s[fsdp.STACK_KEY], row)
+                p.pack(s[p.group], row)
                 self.packed.append(row)
         self.bufs = [torch.empty((L, n * p.c_flat), dtype=dtype, device=dev)
                      for _ in range(n)]

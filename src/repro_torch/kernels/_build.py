@@ -59,6 +59,9 @@ SIGNATURES = {
                "repro_odc_scatter_q8_capacity": [_PI]},
     # x, dt, A, B, C, y, state; b, s, h, p, g, n, Q, dtype; the stream
     "ssd_scan": {"repro_ssd_scan": [_P] * 7 + [_I] * 8 + [_P]},
+    # the ranks' x, shard and output pointer tables; n, m, k, f, dtype;
+    # the stream
+    "gather_matmul": {"repro_gather_matmul": [_P] * 3 + [_I] * 5 + [_P]},
 }
 
 _libs: dict = {}

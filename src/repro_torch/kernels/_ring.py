@@ -32,13 +32,13 @@ CHAIN_SHARE = 16
 
 
 def check(tensors: Sequence[torch.Tensor], what: str) -> torch.device:
-    """The one CUDA device that every rank's tensor lies on; raises on
-    anything the kernels do not take."""
+    """The one device (CUDA, or the CPU of a plain route) that every rank's
+    tensor lies on; raises on anything the kernels do not take."""
     n = len(tensors)
     if not 1 <= n <= MAX_RANKS:
         raise ValueError(f"{what}: {n} ranks, the kernel takes 1..{MAX_RANKS}")
     t0 = tensors[0]
-    if t0.device.type != "cuda":
+    if t0.device.type not in ("cuda", "cpu"):
         raise ValueError(f"{what}: runs on cuda or cpu, not {t0.device}")
     if t0.dtype not in DTYPE_CODES:
         raise TypeError(f"{what}: dtype {t0.dtype} is not float32 or "

@@ -12,7 +12,10 @@ ssm family (``--arch mamba2-2.7b``) serves in wave mode only: its prefill
 runs the hand-written SSD scan kernel (``repro_torch.kernels.ssd_scan``)
 and writes each layer's conv tail and final scan state into a new cache,
 and each decode step is the recurrent update; ``--continuous`` refuses
-it, as the JAX engine does.
+it, as the JAX engine does.  So does the hybrid family (``--arch
+zamba2-1.2b``): its prefill runs the scan kernel in every mamba block and
+the flash kernel in each invocation of the shared attention block, whose
+KV cache is one per invocation.
 
 Weights are random, drawn from ``--seed`` by a ``torch.Generator`` on the
 target device.  Runs on the card unless ``--device cpu`` is given;
@@ -27,6 +30,8 @@ Examples:
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --batch 8 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -69,7 +74,8 @@ def parse_args(argv=None):
                     help="in-flight batching: a request queue over --slots "
                          "decode lanes with block-allocated KV; short "
                          "requests retire early and queued ones join "
-                         "mid-decode")
+                         "mid-decode (the dense family only: the ssm and "
+                         "hybrid families serve in wave mode)")
     ap.add_argument("--slots", type=int, default=4,
                     help="continuous: decode lanes (the decode batch width)")
     ap.add_argument("--requests", type=int, default=12,

@@ -18,9 +18,15 @@ ODC ring is one launch of a hand-written CUDA kernel (under the overlap
 schedule, one chained launch per microbatch round carries the whole
 trunk).
 
-The dense family and the ssm family (``--arch mamba2-2.7b``, whose
-mixers run the hand-written SSD scan kernel) train under every ``--comm``
-but cp, which the ssm family refuses.  Weights are random, drawn from
+The dense family trains under every ``--comm``.  The ssm family
+(``--arch mamba2-2.7b``, whose mixers run the hand-written SSD scan
+kernel) and the hybrid family (``--arch zamba2-1.2b``: super-layers of
+mamba blocks, each followed by one shared attention block through the
+flash kernel) train under collective, odc, odc-overlap, hier, pipe and
+pipe-int8, and refuse cp (ROADMAP.md queue 1 item 5).  Under the overlap
+schedule the hybrid's chained rings carry one super-layer a ring "layer";
+the tail and the shared block move through the single-leaf rings.
+Weights are random, drawn from
 ``--seed`` by a ``torch.Generator`` on the target device, in float32;
 float32 products run in full f32 (TF32 off).
 Runs on the card unless ``--device cpu`` is given.
@@ -40,6 +46,8 @@ Examples:
       --reduced --device cpu --data-axis 4 --comm pipe-int8 --pipe-stages 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
       --reduced --device cpu --data-axis 2 --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --reduced --device cpu --data-axis 2 --comm odc-overlap --steps 2
 
 Where the flags mean something else than in ``repro.launch.train``: the
 JAX driver lays its mesh over every host device and ignores
@@ -64,8 +72,8 @@ from repro_torch.core.ranks import RankGroup
 from repro_torch.core.train_step import Trainer
 from repro_torch.data.loader import SyntheticSFTLoader
 from repro_torch.data.packing import build_minibatch
-from repro_torch.kernels import flash_attention, odc_gather, odc_scatter, \
-    quant, ssd_scan
+from repro_torch.kernels import flash_attention, gather_matmul, \
+    odc_gather, odc_scatter, quant, ssd_scan
 from repro_torch.models import transformer as T
 from repro_torch.obs import log as obs_log
 from repro_torch.optim.adamw import AdamWConfig
@@ -82,7 +90,8 @@ KERNELS = {"flash_attention": (flash_attention, "launches"),
            "dequantize_int8": (quant, "dequantize_launches"),
            "odc_gather_q8": (quant, "gather_launches"),
            "odc_scatter_accumulate_q8": (quant, "scatter_launches"),
-           "ssd_scan": (ssd_scan, "launches")}
+           "ssd_scan": (ssd_scan, "launches"),
+           "gather_matmul": (gather_matmul, "launches")}
 _NOT_PORTED_FLAGS = ("trace", "metrics", "config")
 
 
@@ -128,7 +137,8 @@ def parse_args(argv=None):
                          "'pipe' / 'pipe-int8' (hier's transport over "
                          "stages x data ranks under the 1F1B schedule, see "
                          "--pipe-stages; -int8 sends the inter tier as "
-                         "chunked int8)")
+                         "chunked int8); the ssm and hybrid families "
+                         "(mamba2, zamba2) take every choice but cp")
     ap.add_argument("--device-profile", default="none",
                     choices=("none", "homogeneous", "one_slow", "bimodal",
                              "uniform"),

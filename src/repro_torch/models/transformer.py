@@ -1,5 +1,5 @@
-"""Model assembly, dense and ssm families: the PyTorch counterpart of the
-dense and ssm paths of ``repro.models.transformer``.
+"""Model assembly, dense, ssm and hybrid families: the PyTorch counterpart
+of the dense, ssm and hybrid paths of ``repro.models.transformer``.
 
     init_params(cfg, gen, dtype)                   -> params dict
     apply(cfg, params, batch, ...)                 -> (logits, aux, caches)
@@ -8,22 +8,35 @@ dense and ssm paths of ``repro.models.transformer``.
     loss_ranks(cfg, params_list, batches, ...)     -> [(loss, metrics)]
 
 The params dict has the JAX tree's key names, with the per-layer leaves
-stacked on a leading ``(L, ...)`` axis, so ``bridge.params_from_numpy``
-carries a JAX tree over as it is.  The layer trunk is a Python loop over
-that axis; each layer gets its sliding window as a Python int, which is
-what the attention kernel needs.
+stacked on leading axes, so ``bridge.params_from_numpy`` carries a JAX
+tree over as it is.  The layer trunk is a Python loop over those axes;
+each layer gets its sliding window as a Python int, which is what the
+attention kernel needs.
 
 The ssm family (mamba2) stacks ``{"norm", "mamba"}`` blocks under
 ``layers``; its caches are ``{"conv": (L, B, W-1, conv_dim), "ssm": (L, B,
 h, p, n)}``, and ``apply`` returns new caches (the ones passed in are not
 written).  As in the reference, the ssm forward reads no positions and no
 segment ids: the conv and the scan run across packed samples.
+
+The hybrid family (zamba2) has ``n_super = L // P`` super-layers of P
+mamba blocks (``mamba``, stacked ``(n_super, P, ...)``), then a tail of
+``L % P`` mamba blocks (``mamba_tail``, ``(tail, ...)``, absent when the
+tail is empty), and one dense block, ``shared_attn`` (not stacked), that
+runs after every super-layer with the config's sliding window (0 =
+global).  The mamba blocks read no positions and no segment ids; the
+shared block reads both.  Its caches are ``{"mamba": {"conv", "ssm"}
+(n_super, P, ...), "attn": {"k", "v"} (n_super, B, T, KH, hd), one per
+invocation, written in place, "tail": {"conv", "ssm"} (tail, ...) or
+None}``.  As the reference does, the shared block takes the hidden state
+alone (no concatenation with the embedding, no per-invocation LoRA).
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import fsdp
 from repro_torch.core.odc import prefetch_scan
 from repro_torch.core.ranks import cp_groups
 from repro_torch.models import layers as L
@@ -32,11 +45,11 @@ from repro_torch.models.config import ModelConfig
 
 
 def _require_ported(cfg: ModelConfig):
-    if cfg.num_experts or cfg.family not in ("dense", "ssm"):
+    if cfg.num_experts or cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"yet (ROADMAP.md, queue 1 item 2); the port runs the dense and "
-            f"ssm families")
+            f"yet (ROADMAP.md, queue 1 item 2); the port runs the dense, "
+            f"ssm and hybrid families")
 
 
 def require_cp(cfg: ModelConfig):
@@ -45,7 +58,14 @@ def require_cp(cfg: ModelConfig):
         raise NotImplementedError(
             f"{cfg.name}: context parallelism of the {cfg.family} family is "
             f"not ported (ROADMAP.md, queue 1 item 5): a scan split over the "
-            f"cp ranks needs its state passed between them")
+            f"cp ranks (the {cfg.family} family's mamba blocks) needs its "
+            f"state passed between them")
+
+
+def hybrid_split(cfg: ModelConfig):
+    """(P, n_super, tail) of a hybrid config."""
+    P = cfg.hybrid_attn_period
+    return (P,) + divmod(cfg.num_layers, P)
 
 
 # ===========================================================================
@@ -81,10 +101,44 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                                          dtype)
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
                                        device=gen.device)
+    if cfg.family == "hybrid":
+        P, n_super, tail = hybrid_split(cfg)
+        params["mamba"] = _mamba_block_params(gen, cfg, dtype, (n_super, P))
+        if tail:
+            params["mamba_tail"] = _mamba_block_params(gen, cfg, dtype,
+                                                       (tail,))
+        params["shared_attn"] = _dense_block_params(gen, cfg, dtype)
+        return params
     block = _mamba_block_params if cfg.family == "ssm" \
         else _dense_block_params
     params["layers"] = block(gen, cfg, dtype, (cfg.num_layers,))
     return params
+
+
+def _mamba_block_shapes(cfg, meta, pre):
+    d, di, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_nheads
+    gn = cfg.ssm_ngroups * cfg.ssm_state_size
+    mamba = {"in_proj": meta(*pre, d, 2 * di + 2 * gn + nh),
+             "conv_w": meta(*pre, cfg.ssm_conv_width, di + 2 * gn),
+             "conv_b": meta(*pre, di + 2 * gn), "dt_bias": meta(*pre, nh),
+             "A_log": meta(*pre, nh), "D": meta(*pre, nh),
+             "gate_norm": meta(*pre, di), "out_proj": meta(*pre, di, d)}
+    return {"norm": meta(*pre, d), "mamba": mamba}
+
+
+def _dense_block_shapes(cfg, meta, pre):
+    d, f = cfg.d_model, cfg.d_ff
+    qd, kvd, hd = cfg.q_dim, cfg.kv_dim, cfg.resolved_head_dim
+    attn = {"wq": meta(*pre, d, qd), "wk": meta(*pre, d, kvd),
+            "wv": meta(*pre, d, kvd), "wo": meta(*pre, qd, d)}
+    if cfg.qk_norm:
+        attn["q_norm"] = meta(*pre, hd)
+        attn["k_norm"] = meta(*pre, hd)
+    mlp = {"w_up": meta(*pre, d, f), "w_down": meta(*pre, f, d)}
+    if cfg.activation in ("swiglu", "geglu"):
+        mlp["w_gate"] = meta(*pre, d, f)
+    return {"attn_norm": meta(*pre, d), "attn": attn,
+            "mlp_norm": meta(*pre, d), "mlp": mlp}
 
 
 def param_shapes(cfg: ModelConfig):
@@ -95,28 +149,16 @@ def param_shapes(cfg: ModelConfig):
     if not cfg.tie_embeddings:
         params["lm_head"] = meta(cfg.d_model, cfg.vocab_size)
     params["final_norm"] = meta(cfg.d_model)
-    L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
-    if cfg.family == "ssm":
-        di, nh = cfg.ssm_d_inner, cfg.ssm_nheads
-        gn = cfg.ssm_ngroups * cfg.ssm_state_size
-        mamba = {"in_proj": meta(L, d, 2 * di + 2 * gn + nh),
-                 "conv_w": meta(L, cfg.ssm_conv_width, di + 2 * gn),
-                 "conv_b": meta(L, di + 2 * gn), "dt_bias": meta(L, nh),
-                 "A_log": meta(L, nh), "D": meta(L, nh),
-                 "gate_norm": meta(L, di), "out_proj": meta(L, di, d)}
-        params["layers"] = {"norm": meta(L, d), "mamba": mamba}
-        return params
-    qd, kvd, hd = cfg.q_dim, cfg.kv_dim, cfg.resolved_head_dim
-    attn = {"wq": meta(L, d, qd), "wk": meta(L, d, kvd),
-            "wv": meta(L, d, kvd), "wo": meta(L, qd, d)}
-    if cfg.qk_norm:
-        attn["q_norm"] = meta(L, hd)
-        attn["k_norm"] = meta(L, hd)
-    mlp = {"w_up": meta(L, d, f), "w_down": meta(L, f, d)}
-    if cfg.activation in ("swiglu", "geglu"):
-        mlp["w_gate"] = meta(L, d, f)
-    params["layers"] = {"attn_norm": meta(L, d), "attn": attn,
-                        "mlp_norm": meta(L, d), "mlp": mlp}
+    if cfg.family == "hybrid":
+        P, n_super, tail = hybrid_split(cfg)
+        params["mamba"] = _mamba_block_shapes(cfg, meta, (n_super, P))
+        if tail:
+            params["mamba_tail"] = _mamba_block_shapes(cfg, meta, (tail,))
+        params["shared_attn"] = _dense_block_shapes(cfg, meta, ())
+    elif cfg.family == "ssm":
+        params["layers"] = _mamba_block_shapes(cfg, meta, (cfg.num_layers,))
+    else:
+        params["layers"] = _dense_block_shapes(cfg, meta, (cfg.num_layers,))
     return params
 
 
@@ -218,17 +260,70 @@ def _forward_ssm(cfg, params, batch, caches):
     return x, {k: torch.stack([c[k] for c in new]) for k in ("conv", "ssm")}
 
 
+def _mamba_cache(caches, *index):
+    """One block's {"conv", "ssm"} cache of stacked caches (None: none)."""
+    return None if caches is None else {k: caches[k][index]
+                                        for k in ("conv", "ssm")}
+
+
+def _stack_caches(new):
+    """A list (or list of lists) of per-block caches -> stacked caches."""
+    if isinstance(new[0], list):
+        new = [_stack_caches(row) for row in new]
+    return {k: torch.stack([c[k] for c in new]) for k in ("conv", "ssm")}
+
+
+def _forward_hybrid(cfg, params, batch, caches, cache_index):
+    """The hybrid trunk (``_forward_hybrid`` of the JAX package, its scan a
+    Python loop); with caches, the new mamba and tail caches (prefill or
+    one decode step) and the attention caches written in place."""
+    x = _embed(cfg, params, batch)
+    positions = batch.get("positions")
+    segment_ids = batch.get("segment_ids")
+    P, n_super, tail = hybrid_split(cfg)
+    shared = params["shared_attn"]
+    mcache = tcache = acache = None
+    if caches is not None:
+        mcache, tcache = caches["mamba"], caches["tail"]
+    new_m = []
+    for i in range(n_super):
+        sup = _layer(params["mamba"], i)
+        row = []
+        for j in range(P):
+            x, c = _apply_mamba_block(cfg, _layer(sup, j), x,
+                                      cache=_mamba_cache(mcache, i, j))
+            row.append(c)
+        new_m.append(row)
+        if caches is not None:
+            acache = {k: caches["attn"][k][i] for k in ("k", "v")}  # views
+        x, _ = _apply_dense_block(
+            cfg, shared, x, window=cfg.sliding_window or 0,
+            positions=positions, segment_ids=segment_ids, cache=acache,
+            cache_index=cache_index)
+    new_t = []
+    for j in range(tail):
+        x, c = _apply_mamba_block(cfg, _layer(params["mamba_tail"], j), x,
+                                  cache=_mamba_cache(tcache, j))
+        new_t.append(c)
+    if caches is None:
+        return x, None
+    return x, {"mamba": _stack_caches(new_m), "attn": caches["attn"],
+               "tail": _stack_caches(new_t) if tail else None}
+
+
 def apply(cfg: ModelConfig, params, batch, *, caches=None, cache_index=None,
           last_only: bool = False):
     """Forward pass.  batch: tokens (B, S) and optional positions,
-    segment_ids (B, S) (the ssm family reads neither).  Dense caches are
-    written in place at ``cache_index``; ssm caches are not written, and
-    the new ones come back.  last_only=True projects only the final
+    segment_ids (B, S) (the ssm family reads neither).  Attention caches
+    are written in place at ``cache_index``; ssm caches are not written,
+    and the new ones come back.  last_only=True projects only the final
     position to logits.  Returns (logits, aux, caches); aux is 0.0 for
-    both families."""
+    every ported family."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         x, caches = _forward_ssm(cfg, params, batch, caches)
+    elif cfg.family == "hybrid":
+        x, caches = _forward_hybrid(cfg, params, batch, caches, cache_index)
     else:
         x = _forward_dense(cfg, params, batch, caches, cache_index)
     if last_only:
@@ -241,14 +336,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed decode caches: dense {"k", "v"} of shape (L, B, max_len, KH,
     hd); ssm {"conv": (L, B, W-1, conv_dim) in ``dtype``, "ssm": (L, B, h,
     p, n) float32}, broadcast views of one layer's zeros (``apply`` never
-    writes an ssm cache)."""
+    writes an ssm cache); hybrid {"mamba": ssm's at (n_super, P), "attn":
+    dense's at (n_super,), "tail": ssm's at (tail,) or None}."""
     _require_ported(cfg)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         base = ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
-        return {k: v.expand((cfg.num_layers,) + v.shape)
-                for k, v in base.items()}
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+        mamba = lambda *pre: {k: v.expand(pre + v.shape)
+                              for k, v in base.items()}
+        if cfg.family == "ssm":
+            return mamba(cfg.num_layers)
+        P, n_super, tail = hybrid_split(cfg)
+        return {"mamba": mamba(n_super, P),
+                "attn": _attn_cache(cfg, (n_super,), batch, max_len, dtype,
+                                    device),
+                "tail": mamba(tail) if tail else None}
+    return _attn_cache(cfg, (cfg.num_layers,), batch, max_len, dtype, device)
+
+
+def _attn_cache(cfg, pre, batch, max_len, dtype, device):
+    shape = pre + (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -287,14 +393,25 @@ def forward_ranks(cfg: ModelConfig, params_list, batches, *,
 
     The ssm family runs each rank's mamba blocks in the same lockstep; it
     has no cp path: a recurrence split over a group's ranks would need its
-    state passed between them (``require_cp``)."""
+    state passed between them (``require_cp``).
+
+    The hybrid family steps through its super-layers (``_hybrid_ranks``):
+    ``pxform`` sees the top-level leaves (``shared_attn`` among them,
+    gathered once per forward for its n_super invocations) and each mamba
+    block's slice; ``prefetch`` walks the super-layers, each issued whole,
+    and the tail's blocks go through ``pxform``; ``remat`` recomputes
+    each super-layer and each tail block."""
     _require_ported(cfg)
     if cp > 1:
         require_cp(cfg)
     px = pxform or _identity
-    tops = px([{k: v for k, v in p.items() if k != "layers"}
+    trunk = fsdp.stacked_groups(params_list[0])
+    tops = px([{k: v for k, v in p.items() if k not in trunk}
                for p in params_list])
     xs = [_embed(cfg, t, b) for t, b in zip(tops, batches)]
+    if cfg.family == "hybrid":
+        return tops, _hybrid_ranks(cfg, params_list, tops, xs, batches,
+                                   remat=remat, px=px, prefetch=prefetch)
 
     def blocks(i, xs, full):
         if cfg.family == "ssm":
@@ -319,12 +436,57 @@ def forward_ranks(cfg: ModelConfig, params_list, batches, *,
     def body(i, xs, trees):
         return blocks(i, xs, px(trees))
 
-    for i in range(cfg.num_layers):
+    return tops, _layer_loop(body, xs, layer_trees, cfg.num_layers, remat)
+
+
+def _layer_loop(body, xs, layer_trees, num_layers, remat):
+    """``body(i, xs, layer_trees(i))`` for every layer, each recomputed in
+    the backward pass under ``remat``."""
+    for i in range(num_layers):
         if remat:
             xs = checkpoint(body, i, xs, layer_trees(i), use_reentrant=False)
         else:
             xs = body(i, xs, layer_trees(i))
-    return tops, xs
+    return xs
+
+
+def _hybrid_ranks(cfg, params_list, tops, xs, batches, *, remat, px,
+                  prefetch):
+    """The hybrid trunk of every rank in lockstep: per super-layer its P
+    mamba blocks (each block's slice through ``px``, unless the super-layer
+    comes materialized from ``prefetch``), then the shared block with the
+    ranks' gathered ``shared_attn``; then the tail's blocks."""
+    P, n_super, tail = hybrid_split(cfg)
+    window = cfg.sliding_window or 0
+
+    def mamba(xs, full):
+        return [_apply_mamba_block(cfg, lp, x, cache=None)[0]
+                for lp, x in zip(full, xs)]
+
+    def super_layer(i, xs, sups, gather):
+        for j in range(P):
+            subs = [_layer(t, j) for t in sups]
+            xs = mamba(xs, px(subs) if gather else subs)
+        return [_apply_dense_block(
+            cfg, t["shared_attn"], x, window=window,
+            positions=b.get("positions"), segment_ids=b.get("segment_ids"),
+            cache=None, cache_index=None)[0]
+            for t, x, b in zip(tops, xs, batches)]
+
+    def super_trees(i):
+        return [_layer(p["mamba"], i) for p in params_list]
+
+    if prefetch is not None:
+        xs = prefetch_scan(lambda i, xs, full: super_layer(i, xs, full,
+                                                           False),
+                           xs, super_trees, n_super, prefetch, remat=remat)
+    else:
+        xs = _layer_loop(lambda i, xs, sups: super_layer(i, xs, sups, True),
+                         xs, super_trees, n_super, remat)
+    return _layer_loop(
+        lambda j, xs, subs: mamba(xs, px(subs)), xs,
+        lambda j: [_layer(p["mamba_tail"], j) for p in params_list], tail,
+        remat)
 
 
 def _loss_from_hidden(cfg, top, x, batch, reduction):

@@ -5,8 +5,9 @@ admission, retirement, stop and version-pinning semantics.
 ``GenerationEngine``
     wave-at-a-time: one fixed batch prefilled together, decoded in
     lockstep to the longest request; ``generate(stop_lengths=...)``
-    truncates each request at its own total length.  Dense and ssm
-    families; each step carries on with the cache the step returns.
+    truncates each request at its own total length.  Dense, ssm and
+    hybrid families; each step carries on with the cache the step
+    returns.
 
 ``ContinuousGenerationEngine``
     continuous (in-flight) batching: a request queue feeds ``slots``

@@ -2,7 +2,8 @@
 
 * Save -> resume through the train driver (reduced qwen, 2 ranks, the
   overlap schedule and ODC x minibatch; reduced mamba2, the ssm family,
-  under ODC x minibatch): 2 steps and a checkpoint, then a
+  under ODC x minibatch; reduced zamba2, the hybrid family, under the
+  overlap schedule): 2 steps and a checkpoint, then a
   resumed run to step 3, against 3 steps run straight.  Tolerance: none;
   the losses and final parameters are bitwise equal (the state round-trips
   exactly through float32 files, and the loader replays the skipped steps'
@@ -13,7 +14,9 @@
 * Across the packages: a checkpoint written by
   ``repro.checkpoint.save_checkpoint`` loads into the port as the same
   tree, and one written by the port loads into the JAX package, bitwise,
-  with the same file names, keys and manifest; for mamba2's tree too.
+  with the same file names, keys and manifest; for mamba2's tree too, and
+  for zamba2's at 5 layers (the ``mamba``, ``mamba_tail`` and
+  ``shared_attn`` groups).
 """
 import json
 import os
@@ -28,16 +31,21 @@ import torch
 from repro import checkpoint as jckpt
 from repro import configs as jconfigs
 from repro.models import transformer as JT
+from repro.models.config import reduced as jreduced
 from repro.optim import adamw_init as jinit
 from repro_torch import checkpoint as tckpt
-from repro_torch.configs import get_reduced
+from repro_torch.configs import get_config, get_reduced
 from repro_torch.core import fsdp
 from repro_torch.core.ranks import RankGroup
 from repro_torch.core.train_step import Trainer
 from repro_torch.launch import train as train_cli
+from repro_torch.models.config import reduced
 
 ARCH = "qwen-1.5b"
 MAMBA = "mamba2-2.7b"
+HYBRID = "zamba2-1.2b"
+# the hybrid state's depth: two super-layers at period 2 and a tail of one
+HYBRID_LAYERS = 5
 
 
 def _args(*extra, arch=ARCH):
@@ -82,6 +90,10 @@ def test_mamba_save_then_resume_is_bitwise(tmp_path, one_thread):
     _save_then_resume(tmp_path, "odc", MAMBA)
 
 
+def test_hybrid_save_then_resume_is_bitwise(tmp_path, one_thread):
+    _save_then_resume(tmp_path, "odc-overlap", HYBRID)
+
+
 def test_resume_needs_a_directory_and_starts_fresh_without_one(tmp_path):
     with pytest.raises(SystemExit, match="--resume needs --ckpt-dir"):
         train_cli.run(_args("--resume", "--steps", "1"))
@@ -93,8 +105,16 @@ def test_resume_needs_a_directory_and_starts_fresh_without_one(tmp_path):
     assert tckpt.latest_step(empty) is None
 
 
+def _cfgs(arch):
+    """(JAX config, port config) of a checkpoint test's state."""
+    if arch == HYBRID:
+        return (jreduced(jconfigs.get_config(arch), num_layers=HYBRID_LAYERS),
+                reduced(get_config(arch), num_layers=HYBRID_LAYERS))
+    return jconfigs.get_reduced(arch), get_reduced(arch)
+
+
 def _state(arch):
-    cfg = jconfigs.get_reduced(arch)
+    cfg = _cfgs(arch)[0]
     params = JT.init_params(cfg, jax.random.PRNGKey(2))
     opt = jinit(params)
     # a state past step 0, so that m, v and step are not all zeros
@@ -114,6 +134,11 @@ def mamba_state():
     return _state(MAMBA)
 
 
+@pytest.fixture(scope="module")
+def hybrid_state():
+    return _state(HYBRID)
+
+
 def _assert_same(ours, ref):
     flat = jax.tree_util.tree_leaves_with_path(ref)
     for path, leaf in flat:
@@ -126,7 +151,7 @@ def _assert_same(ours, ref):
 def _jax_to_port(tmp_path, state, arch):
     d = str(tmp_path)
     jckpt.save_checkpoint(d, 5, state)
-    tr = Trainer(get_reduced(arch), RankGroup.make(2, "cpu"))
+    tr = Trainer(_cfgs(arch)[1], RankGroup.make(2, "cpu"))
     assert tckpt.latest_step(d) == 5
     tree = tckpt.load_checkpoint(d, 5, tr.state_like())
     _assert_same(tree, state)
@@ -146,6 +171,11 @@ def test_mamba_jax_checkpoint_loads_into_the_port(tmp_path, mamba_state):
     _jax_to_port(tmp_path, mamba_state, MAMBA)
 
 
+def test_hybrid_jax_checkpoint_loads_into_the_port(tmp_path, hybrid_state):
+    assert "mamba_tail" in hybrid_state["params"]
+    _jax_to_port(tmp_path, hybrid_state, HYBRID)
+
+
 def _np_tree(tree):
     return {k: _np_tree(v) if isinstance(v, dict) else v.numpy()
             for k, v in tree.items()}
@@ -153,7 +183,7 @@ def _np_tree(tree):
 
 def _port_to_jax(tmp_path, state, arch):
     d_port, d_jax = str(tmp_path / "port"), str(tmp_path / "jax")
-    tr = Trainer(get_reduced(arch), RankGroup.make(2, "cpu"))
+    tr = Trainer(_cfgs(arch)[1], RankGroup.make(2, "cpu"))
     from repro_torch import bridge
 
     shards, opt = bridge.train_state_from_numpy(
@@ -177,3 +207,7 @@ def test_port_checkpoint_loads_into_jax(tmp_path, jax_state):
 
 def test_mamba_port_checkpoint_loads_into_jax(tmp_path, mamba_state):
     _port_to_jax(tmp_path, mamba_state, MAMBA)
+
+
+def test_hybrid_port_checkpoint_loads_into_jax(tmp_path, hybrid_state):
+    _port_to_jax(tmp_path, hybrid_state, HYBRID)

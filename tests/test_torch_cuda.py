@@ -8,7 +8,10 @@ reduced serve run and reduced train steps (ODC x minibatch, collective x
 layer, ODC under the overlap schedule, cp) on the card against the same
 run on the CPU; the Mamba2 SSD scan kernel against its plain version
 (forward and gradient), and reduced mamba2 serve and train runs on the
-card against the CPU.  Each test needs an NVIDIA GPU and
+card against the CPU; the gather_matmul kernel against its plain version
+(f32 within 1e-5 of max |plain|, bf16 within 1e-2) and its refusals; and
+reduced zamba2 (5 layers: a tail, two invocations of the shared block)
+serve and train runs on the card against the CPU.  Each test needs an NVIDIA GPU and
 skips without one.
 
 This file imports no jax, so it runs on a machine that has only PyTorch:
@@ -732,5 +735,134 @@ def test_reduced_mamba_train_steps_on_card_match_cpu(cuda, comm, schedule):
             shards, opt, m = tr.step(shards, opt, batch, counts)
             losses[dev].append(float(m["loss"]))
         assert (K.launches > before) == (dev == "cuda")
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-5 * abs(b), (losses["cuda"], losses["cpu"])
+
+
+# ===========================================================================
+# gather_matmul
+# ===========================================================================
+# kernel vs plain: |diff| <= tol * max|plain| over the rank's output.  f32:
+# both sum each hop's c-term dots in f32, in another order (and the plain
+# one through the library's blocking); bf16: both sum the exact products
+# in f32 and round once, so at most one bf16 step (2**-7) apart
+GM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,k,f", [(2, 64, 128, 64), (4, 100, 96, 70),
+                                     (3, 7, 9, 5), (2, 256, 1536, 896)])
+def test_gather_matmul_kernel_matches_plain(cuda, dtype, n, m, k, f):
+    from repro_torch.kernels import gather_matmul as GM
+
+    g = torch.Generator(device=cuda).manual_seed(n * 1000 + m)
+    xs = [torch.randn((m, k), generator=g, device=cuda).to(dtype)
+          for _ in range(n)]
+    ws = [torch.randn((k // n, f), generator=g, device=cuda).to(dtype)
+          for _ in range(n)]
+    before = GM.launches
+    outs = GM.gather_matmul(xs, ws)
+    torch.cuda.synchronize()
+    assert GM.launches == before + 1
+    ref = GM.gather_matmul_plain(xs, ws)
+    assert GM.launches == before + 1
+    for o, r in zip(outs, ref):
+        assert o.dtype == dtype and o.shape == (m, f)
+        err = float((o.float() - r.float()).abs().max())
+        assert torch.isfinite(o.float()).all()
+        assert err <= GM_TOL[dtype] * float(r.float().abs().max()), err
+
+
+def test_gather_matmul_refuses_before_launch(cuda):
+    from repro_torch.kernels import gather_matmul as GM
+
+    x = [torch.zeros((4, 8), device=cuda) for _ in range(2)]
+    w = [torch.zeros((4, 3), device=cuda) for _ in range(2)]
+    before = GM.launches
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        GM.gather_matmul([x[0], x[1].cpu()], w)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        GM.gather_matmul([t.half() for t in x], [t.half() for t in w])
+    with pytest.raises(ValueError, match="contiguous"):
+        GM.gather_matmul([torch.zeros((8, 4), device=cuda).T, x[1]], w)
+    with pytest.raises(ValueError, match="k = 8 columns"):
+        GM.gather_matmul(x, [t[:3] for t in w])
+    assert GM.launches == before
+
+
+# ===========================================================================
+# the hybrid family (zamba2)
+# ===========================================================================
+def _zamba5():
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import reduced
+
+    return reduced(get_config("zamba2-1.2b"), num_layers=5)
+
+
+def test_reduced_hybrid_serve_on_card_matches_cpu(cuda):
+    """5-layer zamba2 prefill and one decode step on the card (scan and
+    flash kernels) against the CPU (plain versions), same weights: logits
+    within 1e-4 (products and sums in another order)."""
+    from repro_torch.kernels import ssd_scan as K
+    from repro_torch.models import transformer as T
+    from repro_torch.posttrain.engine import GenerationEngine
+
+    cfg = _zamba5()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.randint(1, cfg.vocab_size, (4, 40),
+                           generator=torch.Generator().manual_seed(1))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        eng = GenerationEngine(cfg, device=dev)
+        p = _to(params, dev)
+        scans, attn = K.launches, fa.launches
+        out, cache = eng.prefill(p, eng.prompt_batch(tokens),
+                                 eng.init_cache(4, 48))
+        nxt = out[:, -1].argmax(-1)[:, None]
+        out2, _ = eng.decode(p, cache, nxt, 40)
+        logits[dev] = torch.cat([out, out2], dim=1).cpu()
+        on = dev == "cuda"
+        assert K.launches - scans == (cfg.num_layers if on else 0)
+        # two invocations of the shared block, in the prefill and decode
+        assert fa.launches - attn == (2 * 2 if on else 0)
+    err = (logits["cuda"] - logits["cpu"]).abs()
+    assert (err <= 1e-4 * (1 + logits["cpu"].abs())).all(), float(err.max())
+
+
+@pytest.mark.parametrize("comm,schedule", [("odc", "minibatch"),
+                                           ("collective", "layer"),
+                                           ("odc-overlap", "overlap")])
+def test_reduced_hybrid_train_steps_on_card_match_cpu(cuda, comm, schedule):
+    """Two 5-layer zamba2 train steps with two ranks on the card (scan,
+    flash and ring kernels) against the same steps on the CPU: losses
+    within 1e-5 relative, as for qwen."""
+    from repro_torch.core.ranks import RankGroup
+    from repro_torch.core.train_step import Trainer
+    from repro_torch.data.loader import SyntheticSFTLoader
+    from repro_torch.data.packing import build_minibatch
+    from repro_torch.kernels import ssd_scan as K
+    from repro_torch.models import transformer as T
+
+    cfg = _zamba5()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    loader = SyntheticSFTLoader("longalign", vocab_size=cfg.vocab_size,
+                                world_size=2, minibatch_per_device=2,
+                                max_tokens=128, max_len=120, seed=0)
+    steps = list(loader.steps(2))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, RankGroup.make(2, dev), comm=comm,
+                     schedule=schedule)
+        shards, opt = tr.init_state(_to(params, dev))
+        before = K.launches, fa.launches
+        losses[dev] = []
+        for sd in steps:
+            batch = build_minibatch(sd["plan"], sd["sample_tokens"], 128)
+            counts = [len(a) for a in sd["plan"].assignments]
+            shards, opt, m = tr.step(shards, opt, batch, counts)
+            losses[dev].append(float(m["loss"]))
+        after = K.launches, fa.launches
+        assert all((a > b) == (dev == "cuda") for a, b in zip(after, before))
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-5 * abs(b), (losses["cuda"], losses["cpu"])

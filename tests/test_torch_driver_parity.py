@@ -4,8 +4,9 @@ The drivers draw their random weights differently (``torch.Generator``
 against ``jax.random.PRNGKey``), so they are started from one checkpoint
 in the JAX package's format instead: ``JT.init_params`` and
 ``adamw_init`` of the reduced qwen-1.5b (and of the reduced mamba2-2.7b,
-the ssm family, under every ``--comm`` but cp, which the port refuses
-for that family), saved by
+the ssm family, and the reduced zamba2-1.2b, the hybrid family, each
+under every ``--comm`` but cp, which the port refuses for both: a
+hybrid case checks the refusal), saved by
 ``repro.checkpoint.save_checkpoint`` at step 0 (checkpoints cross both
 ways bitwise, ``tests/test_torch_checkpoint.py``).  Each driver then runs
 two steps with ``--ckpt-dir ... --resume`` for every ``--comm`` the port
@@ -48,6 +49,7 @@ from repro_torch.launch import train as train_cli
 REPO = Path(__file__).resolve().parents[1]
 ARCH = "qwen-1.5b"
 MAMBA = "mamba2-2.7b"
+HYBRID = "zamba2-1.2b"
 STEPS = 2
 LOSS_RTOL = 1e-5
 # --comm: (the port's world flags, the JAX driver's flags, its devices)
@@ -65,6 +67,7 @@ CASES = {
                   ["--pipe-stages", "2"], 4),
 }
 MAMBA_CASES = [c for c in CASES if c != "cp"]
+HYBRID_CASES = [c for c in CASES if c != "cp"]
 # JAX driver processes running at once
 CONCURRENT = 3
 
@@ -95,6 +98,11 @@ def ckpt(tmp_path_factory):
 @pytest.fixture(scope="module")
 def mamba_ckpt(tmp_path_factory):
     return _step0(tmp_path_factory, MAMBA)
+
+
+@pytest.fixture(scope="module")
+def hybrid_ckpt(tmp_path_factory):
+    return _step0(tmp_path_factory, HYBRID)
 
 
 def _common(ckpt, arch=ARCH):
@@ -172,6 +180,15 @@ def mamba_runs(mamba_ckpt, tmp_path_factory):
     runs.close()
 
 
+@pytest.fixture(scope="module")
+def hybrid_runs(hybrid_ckpt, tmp_path_factory):
+    runs = _JaxRuns(hybrid_ckpt, tmp_path_factory.mktemp("metrics"), HYBRID,
+                    HYBRID_CASES)
+    runs._fill()
+    yield runs
+    runs.close()
+
+
 def _check(arch, comm, ckpt, jax_runs, capsys):
     port_flags, _, _ = CASES[comm]
     summary = train_cli.run(train_cli.parse_args(
@@ -196,3 +213,17 @@ def test_drivers_match_from_one_checkpoint(comm, ckpt, jax_runs, capsys):
 def test_mamba_drivers_match_from_one_checkpoint(comm, mamba_ckpt,
                                                  mamba_runs, capsys):
     _check(MAMBA, comm, mamba_ckpt, mamba_runs, capsys)
+
+
+@pytest.mark.parametrize("comm", HYBRID_CASES)
+def test_hybrid_drivers_match_from_one_checkpoint(comm, hybrid_ckpt,
+                                                  hybrid_runs, capsys):
+    _check(HYBRID, comm, hybrid_ckpt, hybrid_runs, capsys)
+
+
+def test_hybrid_refuses_cp(hybrid_ckpt):
+    port_flags, _, _ = CASES["cp"]
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        train_cli.run(train_cli.parse_args(
+            [*_common(hybrid_ckpt, HYBRID), "--comm", "cp", *port_flags,
+             "--device", "cpu"]))

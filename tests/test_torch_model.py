@@ -76,7 +76,7 @@ def test_configs_are_copies():
 
 
 def test_non_dense_family_raises():
-    cfg = tconfigs.get_reduced("zamba2-1.2b")  # hybrid: not ported
+    cfg = tconfigs.get_reduced("seamless-m4t-medium")  # audio: not ported
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.init_params(cfg, torch.Generator().manual_seed(0))
 

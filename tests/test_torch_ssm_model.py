@@ -17,7 +17,7 @@ heads of 32, state 16, chunk 32) against the JAX package, on the CPU.
   with every step's top-2 logit margin above the logits' tolerance, and
   the serve driver end to end.
 * What the port refuses for the family: continuous batching (as the JAX
-  engine does) and context parallelism; and the hybrid family.
+  engine does) and context parallelism; and the vlm and moe families.
 
 One torch thread per test: these small tensors gain nothing from more.
 """
@@ -288,7 +288,7 @@ def test_context_parallelism_refuses_the_family(model):
 
 
 def test_other_families_stay_refused():
-    for arch in ("zamba2-1.2b", "llama4-maverick-400b-a17b"):
+    for arch in ("chameleon-34b", "llama4-maverick-400b-a17b"):
         cfg = get_reduced(arch)
         for call in (lambda: TT.init_params(cfg, torch.Generator()),
                      lambda: TT.param_shapes(cfg),
