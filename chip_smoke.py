@@ -27,7 +27,9 @@ refusal of ranks on two devices.  The hybrid family: zamba2-1.2b served
 at full width and depth (38 scans and 6 attention calls per prefill, its
 logits against the plain scan and attention routes) and trained at full
 width and depth with two ranks as collective x layer, ODC x minibatch and
-odc-overlap (one profiled step).
+odc-overlap (a profiled step of ODC x minibatch and one of odc-overlap).
+The chained rings are timed at the grid the overlap gives them and at
+the whole card.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -817,14 +819,15 @@ def phase_layer_rings() -> dict:
                        f"reversed+accumulate {res[2]}")
     torch.cuda.empty_cache()
     with torch.cuda.device(0):
-        cap = _ring.capacity(_build_lib("odc_gather"),
-                             "repro_odc_gather_layers_capacity")
+        cap = 2 * _ring.capacity(_build_lib("odc_gather"),
+                                 "repro_odc_gather_layers_capacity", 2,
+                                 _ring.chain_layout("gather", 2).smem_bytes)
     log(f"chained ring kernels: {len(cases)} cases (n in {RING_NS}, natural "
         f"and profile-ordered, float32 and bfloat16, L in {LAYER_RING_LS}, "
         f"ragged shards, up to {hops} hops in a launch): gather, scatter and "
         f"reversed accumulating scatter bitwise equal to the plain rings in "
         f"{ok}; grid capped at 1/{_ring.CHAIN_SHARE} of the card's "
-        f"{cap} co-resident blocks (the gather kernel's occupancy)")
+        f"{cap} co-resident blocks (the gather's clusters of 2 at n = 2)")
     if bad:
         fail("chained ring kernels disagree with the plain rings:\n  "
              + "\n  ".join(bad))
@@ -1482,7 +1485,7 @@ def phase_zamba_train() -> dict:
     entry point, held to each other as qwen's runs are and to their launch
     counts; step 0 again on the plain scan and attention routes, its loss
     and gradient norm within CP_PLAIN_RTOL; one profiled step of ODC x
-    minibatch."""
+    minibatch and one of odc-overlap."""
     import gc
 
     from repro_torch.configs import get_config
@@ -1552,12 +1555,15 @@ def phase_zamba_train() -> dict:
     if any(model_launches.values()) or max(rel_l, rel_n) > CP_PLAIN_RTOL:
         fail(f"train {ZAMBA}: step 0 differs from the plain scan and "
              f"attention routes")
+    profiles = {}
+    for comm, schedule in (("odc", "minibatch"), ("odc-overlap", "overlap")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        profiles[f"{comm} x {schedule}"] = _profile_train_step(
+            comm, schedule, cfg=cfg)
     gc.collect()
     torch.cuda.empty_cache()
-    profile = _profile_train_step("odc", "minibatch", cfg=cfg)
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"runs": runs, "profile": profile}
+    return {"runs": runs, "profiles": profiles}
 
 
 # ---------------------------------------------------------------------------
@@ -2613,59 +2619,92 @@ def _layer_ring_times(kind, n, L, c) -> dict:
     ranks' float32 (L, c) shards (the gather) or (L, n*c) contributions
     (the scatter), its max |diff| from the plain version, and its byte
     bound: each shard read once and each output written once,
-    (n + n^2) * c * L * 4 bytes at 3.35 TB/s for either kernel.  Library
-    yardsticks: one ``torch.stack`` per rank (gather), one ``sum(0)`` per
-    layer over every rank's contributions (scatter)."""
+    (n + n^2) * c * L * 4 bytes at 3.35 TB/s for either kernel.  The
+    kernel is timed twice: at its default grid, the one the overlap
+    schedule runs beside the compute kernels (1/CHAIN_SHARE of the card),
+    and at the whole card (every cluster the card holds at once, the grid
+    a library call gets).  Library yardsticks: one ``torch.stack`` per
+    rank (gather), one ``sum(0)`` per layer over every rank's
+    contributions (scatter)."""
     from repro_torch.kernels import _ring
     from repro_torch.kernels import odc_gather as G
     from repro_torch.kernels import odc_scatter as S
 
     g = torch.Generator(device="cuda").manual_seed(6)
+    lay = _ring.chain_layout(kind, n)
     if kind == "gather":
+        clusters = _ring.capacity(_build_lib("odc_gather"),
+                                  "repro_odc_gather_layers_capacity", n,
+                                  lay.smem_bytes)
         xs = [torch.randn((L, c), generator=g, device="cuda")
               for _ in range(n)]
         max_err = max(float((a - b).abs().max()) for a, b in zip(
             G.odc_gather_layers(xs), G.odc_gather_layers_plain(xs)))
         torch.cuda.empty_cache()
-        ms = _time_ms(lambda: G.odc_gather_layers(xs), iters=5, warmup=1)
+        ms, card_ms = (_time_ms(lambda: G.odc_gather_layers(
+            xs, blocks_per_rank=grid), iters=5, warmup=1)
+            for grid in (None, clusters))
         plain_ms = _time_ms(lambda: G.odc_gather_layers_plain(xs), iters=5,
                             warmup=1)
         lib_ms = _time_ms(lambda: [torch.stack(xs, dim=1) for _ in range(n)],
                           iters=5, warmup=1)
-        cap = _ring.capacity(_build_lib("odc_gather"),
-                             "repro_odc_gather_layers_capacity")
         del xs
     else:
+        clusters = _ring.capacity(_build_lib("odc_scatter"),
+                                  "repro_odc_scatter_layers_capacity", 0, n,
+                                  lay.smem_bytes)
         ys = [torch.randn((L, n * c), generator=g, device="cuda")
               for _ in range(n)]
         max_err = max(float((a - b).abs().max()) for a, b in zip(
             S.odc_scatter_accumulate_layers(ys),
             S.odc_scatter_accumulate_layers_plain(ys)))
         torch.cuda.empty_cache()
-        ms = _time_ms(lambda: S.odc_scatter_accumulate_layers(ys), iters=5,
-                      warmup=1)
+        ms, card_ms = (_time_ms(lambda: S.odc_scatter_accumulate_layers(
+            ys, blocks_per_rank=grid), iters=5, warmup=1)
+            for grid in (None, clusters))
+        acc = [torch.zeros((L, c), device="cuda") for _ in range(n)]
+        acc_ms = _time_ms(lambda: S.odc_scatter_accumulate_layers(
+            ys, reverse=True, out=acc), iters=5, warmup=1)
+        del acc
         plain_ms = _time_ms(lambda: S.odc_scatter_accumulate_layers_plain(ys),
                             iters=5, warmup=1)
         stacked = torch.stack(ys).view(n, L, n, c)
         lib_ms = _time_ms(lambda: [stacked[:, l].sum(0) for l in range(L)],
                           iters=5, warmup=1)
-        cap = _ring.capacity(_build_lib("odc_scatter"),
-                             "repro_odc_scatter_layers_capacity", 0)
         del ys, stacked
-    blocks = _ring.chain_blocks_per_rank(c * 4, n, cap)
-    bound_ms = (n + n * n) * c * L * 4 / PEAK_BYTES * 1e3
+    plan = _ring.chain_plan(kind, c, 4, n, clusters)
+    blocks = plan.blocks_per_rank
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    nbytes = (n + n * n) * c * L * 4
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    # device-memory bytes each block moves per second, at either grid
+    rate = [nbytes / (n * b) / (t * 1e-3) / 1e9
+            for b, t in ((blocks, ms), (clusters, card_ms))]
     name = ("odc_gather_layers" if kind == "gather"
             else "odc_scatter_accumulate_layers")
     shape_s = (f"n={n} float32 (L, c) = ({L}, {c}) "
-               f"({L * c * 4 / 2 ** 30:.2f} GiB per rank), {blocks} blocks "
-               f"per rank of {cap} co-resident")
-    log(f"time {name} {shape_s}: kernel {ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms (bytes), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-        f"kernel/bound {ms / bound_ms:.1f}x")
+               f"({L * c * 4 / 2 ** 30:.2f} GiB per rank)")
+    grid_s = (f"{blocks} clusters of {n} blocks ({n * blocks} blocks, on up "
+              f"to {min(n * blocks, sms)} of {sms} SMs; {clusters * n // sms}"
+              f" blocks of {lay.smem_bytes} bytes of shared memory, tiles of "
+              f"{plan.tile_bytes} bytes, fit on an SM)")
+    extra = {}
+    if kind == "scatter":
+        extra["reversed_accumulating_ms"] = acc_ms
+    log(f"time {name} {shape_s}: kernel {ms:.4f} ms at the chained grid, "
+        f"{grid_s}, {rate[0]:.2f} GB/s a block; {card_ms:.4f} ms at the "
+        f"whole card ({clusters} clusters, {rate[1]:.2f} GB/s a block)"
+        + (f"; reversed and accumulating at the chained grid, as the overlap "
+           f"calls it, {acc_ms:.4f} ms" if extra else "")
+        + f"; bound {bound_ms:.4f} ms (bytes), plain {plain_ms:.4f} ms, "
+        f"library {lib_ms:.4f} ms, kernel/bound {ms / bound_ms:.1f}x "
+        f"chained, {card_ms / bound_ms:.1f}x whole card")
     torch.cuda.empty_cache()
     return {"shape": shape_s, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "grid": grid_s, "whole_card_ms": card_ms,
+            "whole_card_clusters": clusters, "gb_s_per_block": rate[0],
+            "whole_card_gb_s_per_block": rate[1], **extra}
 
 
 def _state_times() -> dict:

@@ -54,8 +54,9 @@ profiler runs).
 
 Streams and memory: every buffer the side stream touches is owned by the
 step until the compute stream has waited for the side stream, and the
-staging slots the wrappers allocate on the side stream are reused only
-by later side-stream work, so nothing needs ``record_stream``.  The
+chained kernels allocate nothing on the side stream (their hops go
+through shared memory, and their outputs are the step's buffers), so
+nothing needs ``record_stream``.  The
 single-leaf rings of the top-level leaves run on the compute stream at
 most ``1 - 2/CHAIN_SHARE`` of the card, so they are resident beside a
 chained kernel that waits for the compute stream.  A device-wide

@@ -27,12 +27,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _PI = ctypes.POINTER(ctypes.c_int)
 _RING = [_P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P]
-# the chained rings: the ring's arguments up to the credits, the tag base,
-# then layers and the per-layer signal words (gather: done; scatter:
-# reverse, accumulate, ready, ready value), then the stream
-_GATHER_LAYERS = _RING[:-2] + [ctypes.c_ulonglong, _I, _P, _P]
-_SCATTER_LAYERS = _RING[:-2] + [ctypes.c_ulonglong, _I, _I, _I, _P,
-                                ctypes.c_uint, _P]
+# the chained rings: inputs, outputs, order, n, c, element size (gather) or
+# dtype code (scatter), layers; the launch plan (slice, tile bytes, own and
+# first slots, recv slots per hop, blocks per rank); the per-layer signal
+# words (gather: done; scatter: reverse, accumulate, ready, ready value);
+# the stream
+_CHAIN = [_P, _P, _P, _I, _L, _I, _I, _L, _I, _I, _I, _I, _I]
+_GATHER_LAYERS = _CHAIN + [_P, _P]
+_SCATTER_LAYERS = _CHAIN + [_I, _I, _P, ctypes.c_uint, _P]
 
 # C entry points of each kernel library and their argument types
 SIGNATURES = {
@@ -44,11 +46,13 @@ SIGNATURES = {
     "odc_gather": {"repro_odc_gather": _RING,
                    "repro_odc_gather_capacity": [_PI],
                    "repro_odc_gather_layers": _GATHER_LAYERS,
-                   "repro_odc_gather_layers_capacity": [_PI]},
+                   # n, dynamic shared memory -> clusters
+                   "repro_odc_gather_layers_capacity": [_I, _I, _PI]},
     "odc_scatter": {"repro_odc_scatter": _RING,
                     "repro_odc_scatter_capacity": [_I, _PI],
                     "repro_odc_scatter_layers": _SCATTER_LAYERS,
-                    "repro_odc_scatter_layers_capacity": [_I, _PI]},
+                    "repro_odc_scatter_layers_capacity": [_I, _I, _I,
+                                                          _PI]},
     "quant": {"repro_quantize": [_P, _P, _P, _L, _P],
               "repro_dequantize": [_P, _P, _P, _L, _P]},
     # the q8 gather: the ring's arguments, then the ranks' scales in and

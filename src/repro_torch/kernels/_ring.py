@@ -1,18 +1,28 @@
 """What the ODC ring kernels' wrappers share: input checks, the block
-count, the device-side flag state, the launch through ``ctypes``, and the
+count, the device-side flag state of the single-leaf rings, the launch
+plan of the chained rings, the launches through ``ctypes``, and the
 per-layer signals between a chained ring on a side stream and the compute
 stream (the driver's stream memory operations).
 
 Every rank of the ring lies on one card in this version, so one launch
-runs every rank's side of every hop.  The flags and credits that the
-kernel's hops signal through live in device buffers owned by a
-``RingState`` (one per kernel and device) and are never reset: each call
-reads its epoch from a device counter that the wrapper advances after the
-launch (see ``csrc/odc_ring.cuh``).
+runs every rank's side of every hop.  A single-leaf ring signals its hops
+through flags and credits in device buffers owned by a ``RingState`` (one
+per kernel and device), never reset: each call reads its epoch from a
+device counter that the wrapper advances after the launch (see
+``csrc/odc_ring.cuh``).  A chained ring is a cluster kernel
+(``csrc/odc_cluster.cuh``): cluster b holds slice b of every layer for
+all n ranks, its hops move tiles from one block's shared memory into its
+right neighbour's under mbarriers, and nothing but the outputs lives in
+device memory, so a chained launch has no state between calls.  Its
+launch plan (``chain_plan``: tile size, slots, shared memory, slice and
+grid) is a pure function of c, the element size, n and the card's
+co-resident clusters, which the CPU tests check.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -26,8 +36,9 @@ TOO_LARGE = 720
 # A chained ring (odc_gather_layers, odc_scatter_accumulate_layers) runs
 # beside the compute kernels of a training step, so its grid takes at most
 # 1/CHAIN_SHARE of the blocks the card can hold at once (all ranks
-# together), and a single-leaf ring takes at most 1 - 2/CHAIN_SHARE of
-# them: either cooperative grid can be resident while the other runs.
+# together, counted in the chained kernel's own blocks), and a single-leaf
+# ring takes at most 1 - 2/CHAIN_SHARE of its own: either grid can be
+# resident while the other runs.
 CHAIN_SHARE = 16
 
 
@@ -84,20 +95,11 @@ def pointers(tensors: Sequence[torch.Tensor]):
 
 
 class RingState:
-    """Flags, credits and the epoch counter of one ring kernel on one
-    device, grown as a launch needs more blocks; for a chained ring, the
-    host counter of its tag base instead of the device epoch."""
+    """Flags, credits and the epoch counter of one single-leaf ring kernel
+    on one device, grown as a launch needs more blocks."""
 
     def __init__(self):
         self._by_device = {}
-        self._base = {}
-
-    def take_base(self, device: torch.device, hops: int) -> int:
-        """The tag base of a chained launch of ``hops`` hops; the next
-        launch's base is above every tag of this one."""
-        base = self._base.get(device, 0)
-        self._base[device] = (base + hops + 1) & 0xFFFFFFFF
-        return base
 
     def get(self, device: torch.device, n: int, blocks: int):
         flags, credits, epoch = self._by_device.get(
@@ -132,9 +134,9 @@ def blocks_per_rank(nbytes: int, n: int, cap: int) -> int:
 
 
 def chain_blocks_per_rank(nbytes: int, n: int, cap: int) -> int:
-    """Blocks for each rank of a chained ring: one per ``BYTES_PER_BLOCK``
-    of a layer's shard, at most 1/CHAIN_SHARE of the card over all
-    ranks."""
+    """Blocks for each rank of a chained ring (clusters): one per
+    ``BYTES_PER_BLOCK`` of a layer's shard, at most 1/CHAIN_SHARE of the
+    card's co-resident blocks over all ranks."""
     want = max(1, -(-nbytes // BYTES_PER_BLOCK))
     return max(1, min(want, (cap // CHAIN_SHARE) // n))
 
@@ -148,32 +150,128 @@ def refuse(name: str, n: int, blocks: int, cap: int, device):
 
 def launch(fn, name: str, ins, outs, stages, order, elems: int, code: int,
            blocks: int, cap: int, state: RingState, device: torch.device,
-           extra=(), hops=None):
-    """Launch ``fn`` on the current stream; raises on a refused launch,
-    before anything ran.  ``cap`` is the card's co-resident block count
-    for this kernel; the C side checks it too.  A single-leaf ring reads
-    its epoch from the device counter, which is advanced after the launch;
-    a chained ring (``hops`` given) gets its tag base from the host
-    counter instead, and nothing is enqueued behind it (odc_ring.cuh).
-    ``extra`` are the arguments after the epoch or tag base, before the
-    stream."""
+           extra=()):
+    """Launch the single-leaf ring ``fn`` on the current stream; raises on
+    a refused launch, before anything ran.  ``cap`` is the card's
+    co-resident block count for this kernel; the C side checks it too.
+    The kernel reads its epoch from the device counter, which is advanced
+    after the launch.  ``extra`` are the arguments after the epoch, before
+    the stream."""
     n = len(ins)
     if n * blocks > cap:
         refuse(name, n, blocks, cap, device)
     flags, credits, epoch = state.get(device, n, blocks)
     stream = torch.cuda.current_stream(device).cuda_stream
-    tag = epoch.data_ptr() if hops is None else state.take_base(device, hops)
     with torch.cuda.device(device):
         err = fn(pointers(ins), pointers(outs), pointers(stages),
                  order_table(n, order), n, elems, code, blocks,
-                 flags.data_ptr(), credits.data_ptr(), tag, *extra, stream)
+                 flags.data_ptr(), credits.data_ptr(), epoch.data_ptr(),
+                 *extra, stream)
     if err == TOO_LARGE:
         refuse(name, n, blocks, cap, device)
     if err != 0:
         raise RuntimeError(f"{name} kernel failed to launch: CUDA error "
                            f"{err}")
-    if hops is None:
-        epoch.add_(1)
+    epoch.add_(1)
+
+
+# ---------------------------------------------------------------------------
+# the chained rings' launch plan (cluster kernels, csrc/odc_cluster.cuh)
+# ---------------------------------------------------------------------------
+# shared memory of one H100 SM, of which the runtime reserves 1 KB for each
+# resident block
+SM_SHARED_BYTES = 233_472
+BLOCK_RESERVED_BYTES = 1024
+# A chained kernel's shared memory is sized so that this many of its blocks
+# fit on one SM; its grid share (CHAIN_SHARE) then spreads over about
+# 8/CHAIN_SHARE of the SMs, one block on each.
+CHAIN_BLOCKS_PER_SM = 8
+# Own slots (TMA loads), first slots (the scatter's hop-1 tiles, loaded
+# and pushed as they are) and recv slots per ring (each hop gets
+# max(1, this // (n - 1)) of its own) of each chained kernel.  A bulk copy
+# costs a few hundred nanoseconds whatever its size, so a few large slots
+# move more than many small ones in the same shared memory (PERF.md §6).
+CHAIN_KERNELS = {"gather": (3, 0, 2), "scatter": (4, 1, 1)}
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """What a chained launch passes its kernel besides the tensors."""
+    own_slots: int
+    first_slots: int
+    recv_depth: int        # recv slots of each hop
+    tile_bytes: int        # bytes of one slot, a multiple of 128
+    smem_bytes: int        # dynamic shared memory of one block
+    slice_elems: int = 0   # elements of c per cluster, 16-byte multiple
+    blocks_per_rank: int = 0  # clusters
+
+
+def chain_smem_bytes(n: int, tile_bytes: int, own: int, first: int,
+                     depth: int) -> int:
+    """A block's shared memory: the slots, a full and an empty (or rfree)
+    barrier for each, and a third barrier for each own slot
+    (odc_chain_smem_bytes)."""
+    slots = own + first + (depth * (n - 1) if n > 1 else 0)
+    return slots * (tile_bytes + 16) + 8 * own
+
+
+def chain_layout(kind: str, n: int) -> ChainPlan:
+    """Slots, tile size and shared memory of a chained kernel ("gather"
+    or "scatter") on n ranks, for any c and element size."""
+    own, first, recv = CHAIN_KERNELS[kind]
+    depth = max(1, recv // max(1, n - 1))
+    budget = SM_SHARED_BYTES // CHAIN_BLOCKS_PER_SM - BLOCK_RESERVED_BYTES
+    slots = own + first + (depth * (n - 1) if n > 1 else 0)
+    tile = (budget - chain_smem_bytes(n, 0, own, first, depth)) // slots
+    tile -= tile % 128
+    return ChainPlan(own, first, depth, tile,
+                     chain_smem_bytes(n, tile, own, first, depth))
+
+
+def chain_plan(kind: str, c: int, elem_bytes: int, n: int, clusters: int,
+               blocks_per_rank: Optional[int] = None) -> ChainPlan:
+    """The launch plan of a chained ring over n ranks' layers of c
+    elements of ``elem_bytes``, on a card that holds ``clusters`` clusters
+    of this kernel at once: the layout, the grid (at most 1/CHAIN_SHARE of
+    the card unless ``blocks_per_rank`` overrides it) and the slice of c
+    each cluster carries, cut at 16 bytes so that every tile starts
+    aligned.  Raises when the card cannot hold one cluster."""
+    lay = chain_layout(kind, n)
+    if clusters < 1:
+        raise RuntimeError(
+            f"odc chained {kind}: the card cannot hold one cluster of {n} "
+            f"blocks of {lay.smem_bytes} bytes of shared memory each, so no "
+            f"grid of it can be resident; launch refused")
+    if blocks_per_rank is None:
+        blocks_per_rank = chain_blocks_per_rank(c * elem_bytes, n,
+                                                clusters * n)
+    step = 16 // math.gcd(16, elem_bytes)
+    per = -(-max(c, 1) // blocks_per_rank)
+    return dataclasses.replace(lay, slice_elems=-(-per // step) * step,
+                               blocks_per_rank=blocks_per_rank)
+
+
+def chain_launch(fn, name: str, ins, outs, order, elems: int, code: int,
+                 layers: int, plan: ChainPlan, clusters: int,
+                 device: torch.device, extra=()):
+    """Launch the chained ring ``fn`` with ``plan`` on the current stream;
+    raises on a refused launch (a grid of more clusters than the card
+    holds at once), before anything ran.  ``extra`` are the arguments
+    after the grid, before the stream."""
+    n = len(ins)
+    if plan.blocks_per_rank > clusters:
+        refuse(name, n, plan.blocks_per_rank, clusters * n, device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(pointers(ins), pointers(outs), order_table(n, order), n,
+                 elems, code, layers, plan.slice_elems, plan.tile_bytes,
+                 plan.own_slots, plan.first_slots, plan.recv_depth,
+                 plan.blocks_per_rank, *extra, stream)
+    if err == TOO_LARGE:
+        refuse(name, n, plan.blocks_per_rank, clusters * n, device)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel failed to launch: CUDA error "
+                           f"{err}")
 
 
 # ---------------------------------------------------------------------------
@@ -243,8 +341,9 @@ def probe_stream_memops(device: torch.device):
 
 class LayerDone:
     """Per-layer completion counters of the chained gathers on one device.
-    Every block of a launch adds one to ``done[l]`` once it has filed its
-    slice of layer l; the counters are never reset, and the host keeps
+    Every storing thread of a launch (n in each of its blocks) adds one to
+    ``done[l]`` once its stores of layer l are complete; the counters are
+    never reset, and the host keeps
     their running total, so ``wait(l)`` makes the current stream wait for
     layer l of the latest launch exactly.  On the CPU it does nothing:
     the plain rings are done when they return."""
@@ -255,9 +354,9 @@ class LayerDone:
                       if self.device.type == "cuda" else None)
         self.target = 0
 
-    def advance(self, blocks: int):
-        """A launch of ``blocks`` blocks (all ranks) is enqueued."""
-        self.target = (self.target + blocks) & 0xFFFFFFFF
+    def advance(self, adds: int):
+        """A launch whose threads add ``adds`` to each word is enqueued."""
+        self.target = (self.target + adds) & 0xFFFFFFFF
 
     def wait(self, layer: int, stream=None):
         if self.words is not None:

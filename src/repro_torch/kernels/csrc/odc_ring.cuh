@@ -1,6 +1,7 @@
-// Shared pieces of the ODC ring kernels (odc_gather.cu, odc_scatter.cu,
-// odc_q8.cu): the per-call argument block, the flag protocol and the copy
-// helpers.
+// Shared pieces of the single-leaf ODC ring kernels (odc_gather.cu,
+// odc_scatter.cu, odc_q8.cu): the per-call argument block, the flag
+// protocol and the copy helpers.  The chained rings are cluster kernels
+// with a protocol of their own (odc_cluster.cuh).
 //
 // Protocol (one-sided push, as in the TPU kernels): every rank owns two
 // staging slots.  A hop writes its payload into the right neighbour's slot,
@@ -151,51 +152,4 @@ static inline OdcArgs odc_args(const void* const* in, void* const* out,
   a.credits = credits;
   a.epoch = epoch;
   return a;
-}
-
-// ---------------------------------------------------------------------------
-// Chained rings (odc_gather_layers_kernel, odc_scatter_layers_kernel): L
-// rings in one launch through the same two staging slots, indexed by the
-// global hop g = l * (n - 1) + i.  A launch has L * (n - 1) hops, more than
-// ODC_TAG_STRIDE at qwen's 28 layers on 8 ranks (196), so a chained
-// launch does not use epoch * stride: it takes a tag base as an argument,
-// which the wrapper's host counter advances by the launch's hop count plus
-// one, and hop g of the launch is tagged base + g + 1.  Every tag of a
-// later launch is then larger than every tag of an earlier one, whatever
-// L and n were.  The base comes from the host, not from a device counter
-// advanced by a kernel after the launch, so that nothing at all is
-// enqueued behind a chained scatter that may be waiting for the compute
-// stream: a host blocked in a CUDA call while that scatter waits (a lazily
-// loaded kernel's first launch synchronises the context, as measured on
-// the H100) would never enqueue the ready flags the scatter waits for.
-//
-// A chained kernel lives beside the compute kernels of a training step
-// (on a side stream, through a microbatch's forward or backward), so its
-// wrapper caps its grid at a small fixed share of the card (_ring.py,
-// CHAIN_SHARE) and every single-leaf ring leaves twice that share free:
-// a cooperative grid of either kind can then be resident while the other
-// runs.
-__device__ __forceinline__ unsigned odc_chain_tag(unsigned long long base,
-                                                  long long hop) {
-  return (unsigned)(base + (unsigned long long)hop + 1ull);
-}
-
-// Thread 0 waits until the 32-bit word at p has reached `want` in cyclic
-// order ((int)(*p - want) >= 0, the comparison cuStreamWaitValue32 makes),
-// then the whole block proceeds.  The word is written by another stream
-// (cuStreamWriteValue32), so this wait also covers the compute stream:
-// a lockstep microbatch's backward at full width takes a few seconds, so
-// the 30 s trap still only catches a bug (a ready flag that never comes).
-__device__ __forceinline__ void odc_wait_cyclic(const unsigned* p,
-                                                unsigned want) {
-  if (threadIdx.x == 0) {
-    unsigned long long t0 = 0;
-    while ((int)(odc_ld_acquire(p) - want) < 0) {
-      if (t0 == 0) t0 = odc_now_ns();
-      else if (odc_now_ns() - t0 > ODC_TIMEOUT_NS) __trap();
-      __nanosleep(256);
-    }
-    __threadfence();
-  }
-  __syncthreads();
 }

@@ -20,8 +20,11 @@ the shards lie on a CUDA device, and runs the plain ring
 shard -> its (L, n*c, ...) output, rank s's rows of layer l at
 ``[l, s*c:(s+1)*c]``, the L rings chained through one launch of
 ``repro_odc_gather_layers`` on a CUDA device; its plain version
-(``odc_gather_layers_plain``) is the plain ring layer by layer.
-``layers_launches`` counts its launches.
+(``odc_gather_layers_plain``) is the plain ring layer by layer.  The
+kernel is a cluster kernel whose hops go through shared memory
+(``csrc/odc_cluster.cuh``); its launch plan is ``_ring.chain_plan``, and
+it allocates nothing but the outputs.  ``layers_launches`` counts its
+launches.
 """
 from __future__ import annotations
 
@@ -35,7 +38,6 @@ from repro_torch.kernels import _build, _ring
 launches = 0
 layers_launches = 0
 _STATE = _ring.RingState()
-_LAYERS_STATE = _ring.RingState()
 
 __all__ = ["odc_gather", "odc_gather_plain", "launches",
            "odc_gather_layers", "odc_gather_layers_plain", "layers_launches"]
@@ -94,7 +96,7 @@ def odc_gather_layers(shards: Sequence[torch.Tensor],
     ``out``: the ranks' output tensors to fill (else new ones).
     ``done``: per-layer completion counters; ``done.wait(l)`` then makes a
     stream wait for layer l of this launch (on the CPU it does nothing).
-    ``blocks_per_rank`` overrides the grid (default: at most
+    ``blocks_per_rank`` overrides the grid, in clusters (default: at most
     1/CHAIN_SHARE of the card); a grid that cannot be resident raises."""
     global layers_launches
     x = shards[0]
@@ -113,23 +115,20 @@ def odc_gather_layers(shards: Sequence[torch.Tensor],
             o.copy_(f)
         return list(out)
     device = _ring.check(shards, "odc_gather_layers")
-    c = x[0].numel()
+    c, es = x[0].numel(), x.element_size()
     lib = _build.library("odc_gather")
+    smem = _ring.chain_layout("gather", n).smem_bytes
     with torch.cuda.device(device):
-        cap = _ring.capacity(lib, "repro_odc_gather_layers_capacity")
-    if blocks_per_rank is None:
-        blocks_per_rank = _ring.chain_blocks_per_rank(
-            c * x.element_size(), n, cap)
+        clusters = _ring.capacity(lib, "repro_odc_gather_layers_capacity", n,
+                                  smem)
+    plan = _ring.chain_plan("gather", c, es, n, clusters, blocks_per_rank)
     outs = list(out) if out is not None else [
         torch.empty(shape, dtype=x.dtype, device=device) for _ in range(n)]
-    stages = [torch.empty(2 * c, dtype=x.dtype, device=device)
-              for _ in range(n)]
     done_ptr = done.words.data_ptr() if done is not None else None
-    _ring.launch(lib.repro_odc_gather_layers, "odc_gather_layers", shards,
-                 outs, stages, order, c, x.element_size(), blocks_per_rank,
-                 cap, _LAYERS_STATE, device, extra=(L, done_ptr),
-                 hops=L * (n - 1))
-    if done is not None:
-        done.advance(n * blocks_per_rank)
+    _ring.chain_launch(lib.repro_odc_gather_layers, "odc_gather_layers",
+                       shards, outs, order, c, es, L, plan, clusters, device,
+                       extra=(done_ptr,))
+    if done is not None:  # n storing threads in each of n * B blocks
+        done.advance(n * n * plan.blocks_per_rank)
     layers_launches += 1
     return outs

@@ -22,8 +22,10 @@ other route.  ``launches`` counts kernel launches.
 the reference's hop order, the L rings chained through one launch of
 ``repro_odc_scatter_layers`` on a CUDA device; its plain version
 (``odc_scatter_accumulate_layers_plain``) is the plain ring layer by
-layer, bitwise equal to the kernel.  ``layers_launches`` counts its
-launches.
+layer, bitwise equal to the kernel.  The kernel is a cluster kernel whose
+hops go through shared memory (``csrc/odc_cluster.cuh``); its launch plan
+is ``_ring.chain_plan``, and it allocates nothing but the outputs.
+``layers_launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -38,7 +40,6 @@ from repro_torch.kernels import _build, _ring
 launches = 0
 layers_launches = 0
 _STATE = _ring.RingState()
-_LAYERS_STATE = _ring.RingState()
 
 __all__ = ["odc_scatter_accumulate", "odc_scatter_accumulate_plain",
            "launches", "odc_scatter_accumulate_layers",
@@ -116,7 +117,7 @@ def odc_scatter_accumulate_layers(ys: Sequence[torch.Tensor],
     host code that cannot block on the device (no first launch of a
     kernel: CUDA's lazy module loading may synchronise the context, which
     would wait for this kernel); a layer never set traps after 30 s.
-    ``blocks_per_rank`` overrides the grid (default: at most
+    ``blocks_per_rank`` overrides the grid, in clusters (default: at most
     1/CHAIN_SHARE of the card); a grid that cannot be resident raises."""
     global layers_launches
     y = ys[0]
@@ -141,23 +142,21 @@ def odc_scatter_accumulate_layers(ys: Sequence[torch.Tensor],
     c = y[0].numel() // n
     code = _ring.DTYPE_CODES[y.dtype]
     lib = _build.library("odc_scatter")
+    smem = _ring.chain_layout("scatter", n).smem_bytes
     with torch.cuda.device(device):
-        cap = _ring.capacity(lib, "repro_odc_scatter_layers_capacity", code)
-    if blocks_per_rank is None:
-        blocks_per_rank = _ring.chain_blocks_per_rank(
-            c * y.element_size(), n, cap)
+        clusters = _ring.capacity(lib, "repro_odc_scatter_layers_capacity",
+                                  code, n, smem)
+    plan = _ring.chain_plan("scatter", c, y.element_size(), n, clusters,
+                            blocks_per_rank)
     outs = list(out) if out is not None else [
         torch.empty(shape, dtype=y.dtype, device=device) for _ in range(n)]
-    stages = [torch.empty(2 * c, dtype=y.dtype, device=device)
-              for _ in range(n)]
     ready_ptr, want = None, 0
     if ready is not None:
         ready_ptr, want = ready.words.data_ptr(), ready.value
-    _ring.launch(lib.repro_odc_scatter_layers,
-                 "odc_scatter_accumulate_layers", ys, outs, stages, order, c,
-                 code, blocks_per_rank, cap, _LAYERS_STATE, device,
-                 extra=(L, int(reverse), int(out is not None), ready_ptr,
-                        want),
-                 hops=L * (n - 1))
+    _ring.chain_launch(lib.repro_odc_scatter_layers,
+                       "odc_scatter_accumulate_layers", ys, outs, order, c,
+                       code, L, plan, clusters, device,
+                       extra=(int(reverse), int(out is not None), ready_ptr,
+                              want))
     layers_launches += 1
     return outs

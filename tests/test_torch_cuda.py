@@ -198,37 +198,63 @@ def test_ring_refuses_a_grid_that_cannot_be_resident(cuda):
     assert all(torch.equal(o, torch.ones(256, device=cuda)) for o in out)
 
 
+def _chain_edges(kind, dtype, n):
+    """Layer sizes (elements) at the chained kernel's tile edges on n
+    ranks: a slice shorter than one tile, exactly three tiles, three tiles
+    and one element, and an odd count (rows not 16-byte aligned: the
+    threads' copy route)."""
+    from repro_torch.kernels import _ring
+
+    es = torch.empty(0, dtype=dtype).element_size()
+    te = _ring.chain_layout(kind, n).tile_bytes // es
+    return (te - 1, 3 * te, 3 * te + 1, 1001)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,L", [(2, 3), (4, 28), (8, 28)])
+@pytest.mark.parametrize("n,L", [(2, 3), (4, 28), (8, 28), (16, 3)])
 def test_chained_ring_kernels_match_plain_rings(cuda, dtype, n, L):
     """Both chained kernels, the scatter also in backward layer order and
     accumulating, bitwise against the plain rings; 28 layers on 4 and 8
-    ranks are 84 and 196 hops in one launch, above the single-leaf
-    kernels' tag stride of 64, and a second launch follows each first."""
+    ranks are 84 and 196 hops in one launch, and a second launch follows
+    each first.  Layers of (c, 3), then of c elements at the tile edges of
+    each kernel (``_chain_edges``).  16 ranks need a cluster of 16 blocks
+    (non-portable): a card that cannot hold one refuses it clearly."""
     from repro_torch.kernels import odc_gather as G
     from repro_torch.kernels import odc_scatter as S
 
     order = list(reversed(range(n)))
     gen = torch.Generator(device=cuda).manual_seed(n + L)
-    for c in (1, 1003):
-        xs = [torch.randn(L, c, 3, generator=gen, device=cuda).to(dtype)
+    if n == 16:
+        try:
+            G.odc_gather_layers([torch.ones(L, 8, device=cuda)] * n)
+        except RuntimeError as e:
+            assert "cannot hold one cluster" in str(e)
+            return
+    # (1003, 3) also cut into three clusters of ragged slices
+    cases = [((1, 3), None), ((1003, 3), None), ((1003, 3), 3)]
+    cases += [((c,), None) for c in sorted(set(
+        _chain_edges("gather", dtype, n) + _chain_edges("scatter", dtype, n)))]
+    for shape, grid in cases:
+        c = shape[0]
+        xs = [torch.randn((L,) + shape, generator=gen, device=cuda).to(dtype)
               for _ in range(n)]
         for o in (None, order):
             before = G.layers_launches
-            out = G.odc_gather_layers(xs, o)
+            out = G.odc_gather_layers(xs, o, blocks_per_rank=grid)
             torch.cuda.synchronize()
             assert G.layers_launches == before + 1
             ref = G.odc_gather_layers_plain(xs, o)
             assert all(torch.equal(a, b) for a, b in zip(out, ref))
-        ys = [torch.randn(L, n * c, 3, generator=gen, device=cuda).to(dtype)
-              for _ in range(n)]
+        ys = [torch.randn((L, n * c) + shape[1:], generator=gen,
+                          device=cuda).to(dtype) for _ in range(n)]
         for o in (None, order):
-            out = S.odc_scatter_accumulate_layers(ys, o)
+            out = S.odc_scatter_accumulate_layers(ys, o, blocks_per_rank=grid)
             torch.cuda.synchronize()
             ref = S.odc_scatter_accumulate_layers_plain(ys, o)
             assert all(torch.equal(a, b) for a, b in zip(out, ref))
             acc = [torch.ones_like(r) for r in ref]
-            S.odc_scatter_accumulate_layers(ys, o, reverse=True, out=acc)
+            S.odc_scatter_accumulate_layers(ys, o, reverse=True, out=acc,
+                                            blocks_per_rank=grid)
             torch.cuda.synchronize()
             assert all(torch.equal(a, 1 + b) for a, b in zip(acc, ref))
 
@@ -248,6 +274,34 @@ def test_chained_rings_refuse_a_grid_that_cannot_be_resident(cuda):
     out = G.odc_gather_layers(xs)
     torch.cuda.synchronize()
     assert all(torch.equal(o, torch.ones(2, 128, device=cuda)) for o in out)
+
+
+def test_chained_launches_allocate_only_their_outputs(cuda):
+    """A chained launch allocates its outputs and nothing else (no staging
+    in device memory): none with ``out=``, as much as the outputs without."""
+    from repro_torch.kernels import odc_gather as G
+    from repro_torch.kernels import odc_scatter as S
+
+    n, L, c = 2, 4, 50_000
+    xs = [torch.randn(L, c, device=cuda) for _ in range(n)]
+    ys = [torch.randn(L, n * c, device=cuda) for _ in range(n)]
+    full = [torch.empty(L, n * c, device=cuda) for _ in range(n)]
+    acc = [torch.zeros(L, c, device=cuda) for _ in range(n)]
+    G.odc_gather_layers(xs, out=full)  # built and loaded before counting
+    S.odc_scatter_accumulate_layers(ys, out=acc)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    G.odc_gather_layers(xs, out=full)
+    S.odc_scatter_accumulate_layers(ys, out=acc)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) == before
+    like = [torch.empty(L, n * c, device=cuda) for _ in range(n)]
+    outputs = torch.cuda.memory_allocated(cuda) - before
+    del like
+    out = G.odc_gather_layers(xs)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) - before == outputs
+    assert all(torch.equal(a, b) for a, b in zip(out, full))
 
 
 @pytest.mark.parametrize("comm,schedule", [("odc", "minibatch"),
