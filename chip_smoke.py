@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the port's kernels,
 holds each one to its plain PyTorch version on the card (flash attention
-forward and gradient, the state sweep of ring attention, the ODC ring
+forward and gradient, its decode path against its split algorithm and a
+row the same in any batch, the state sweep of ring attention, the ODC ring
 gather and scatter-accumulate, their chained-layer versions and the
 per-layer flags between a chained ring and the compute stream), holds the
 cp ring's forward bitwise to the monolithic kernel and its gradient to
@@ -373,6 +374,73 @@ def phase_kernel_cases() -> dict:
     if bad:
         fail(f"flash_attention disagrees with its plain version: {bad}")
     return errs
+
+
+# ---------------------------------------------------------------------------
+# phase 3a': the decode path (split keys over a cluster) against the plain
+# version and its own algorithm, and a row the same in any batch
+# ---------------------------------------------------------------------------
+# name -> (B, S, T, H, KH, hd, options), every one at or under the decode
+# path's rows threshold: qwen's and zamba2's serve decode, per-row cache
+# indices, two positions of qwen's 6 heads, and the threshold's 8 rows at
+# head dim 256 and 16 at head dim 32
+DECODE_CASES = {
+    "serve decode": ATTN_CASES["serve decode"],
+    "zamba2 serve decode": ATTN_CASES["zamba2 serve decode"],
+    "decode per-row index": ATTN_CASES["decode per-row index"],
+    "2 positions x 6 heads": (4, 2, 300, 12, 2, 128,
+                              {"q_pos": [3, 77, 150, 298],
+                               "kv_valid": [4, 78, 151, 299]}),
+    "8 rows hd256 window+softcap": (2, 8, 300, 2, 2, 256,
+                                    {"q_pos": [100, 292],
+                                     "kv_valid": [107, 299], "window": 64,
+                                     "softcap": 30.0}),
+    "16 rows hd32": (2, 16, 700, 2, 2, 32, {"q_pos": [600, 10],
+                                            "kv_valid": [615, 25]}),
+}
+
+
+def phase_decode() -> dict:
+    """Each decode case takes the decode path (its launch plan), agrees
+    with ``flash_attention_plain`` and with ``flash_decode_split_plain``
+    (the path's split and merge) within TOL on rows with a valid key, and
+    gives each batch row bit for bit what that row gives alone."""
+    from repro_torch.kernels import flash_attention as fa
+
+    bad = []
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        for i, (name, (B, S, T, H, KH, hd, opt)) in enumerate(
+                DECODE_CASES.items()):
+            if not fa.launch_plan(B, S, T, H, KH, hd, dtype)["decode"]:
+                fail(f"decode case {name} does not take the decode path")
+            q, k, v, kw = _attn_case(B, S, T, H, KH, hd, dtype, seed=40 + i,
+                                     **opt)
+            out = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            errs = []
+            for ref in (fa.flash_attention_plain(q, k, v, **kw),
+                        fa.flash_decode_split_plain(q, k, v, **kw)):
+                ok, err, nrows = _compare(out, ref, kw, dtype)
+                errs.append(err)
+                if not ok:
+                    bad.append(f"{name} {tag}")
+            alone = all(torch.equal(fa.flash_attention(
+                q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                **{n: (x[b:b + 1] if torch.is_tensor(x) else x)
+                   for n, x in kw.items()}), out[b:b + 1]) for b in range(B))
+            if not alone:
+                bad.append(f"{name} {tag}: a row alone differs from the "
+                           f"same row in its batch")
+            worst[(name, dtype)] = max(errs)
+            log(f"decode path [{tag:8s}] {name:28s} max|diff| vs plain "
+                f"{errs[0]:.3e}, vs split plain {errs[1]:.3e} over {nrows} "
+                f"rows (tol {TOL[dtype]:g}); each row alone bitwise "
+                f"{'equal' if alone else 'DIFFERENT'}")
+    if bad:
+        fail(f"decode path: {bad}")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1759,7 +1827,8 @@ def _profile_decode(engine, params, cache, tok, start, steps=8):
         run(start + 2 * steps)
         wall_prof = (time.perf_counter() - t0) * 1e3 / steps
     dev, n_kernels = _device_ms(prof, "decode_trace.json", steps, {
-        "flash_attention": ("attn_fwd",), "gemm": ("gemm", "gemv")})
+        "flash_attention": ("attn_fwd", "attn_decode"),
+        "gemm": ("gemm", "gemv")})
     busy = sum(dev.values())
     log(f"decode step profile ({engine.cfg.name} wave, batch "
         f"{tok.shape[0]}): host "
@@ -2013,7 +2082,7 @@ def _profile_train_step(comm="odc", schedule="minibatch", cp=1,
     tag = f"{cfg.name} {comm} x {tr.schedule}"
     name = f"train_trace_{cfg.name}_{comm}_{tr.schedule}.json"
     dev, n_kernels = _device_ms(prof, name, 1, {
-        "flash_attention": ("attn_fwd",),
+        "flash_attention": ("attn_fwd", "attn_decode"),
         "flash_attention_state": ("attn_state",),
         "ssd_scan": ("ssd_scan_kernel",),
         "odc_chained": CHAINED,
@@ -2476,15 +2545,26 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 # phase 5: times against bounds
 # ---------------------------------------------------------------------------
+# cycles of the spin kernel queued before each timed call (about 1 ms on
+# an H100): longer than the host takes to enqueue any timed call
+SPIN_CYCLES = 2_000_000
+
+
 def _time_ms(fn, iters=20, warmup=3):
     """Mean device time of one call, with L2 flushed before each call: in
-    the serve path a layer's K/V was last touched a whole model ago."""
+    the serve path a layer's K/V was last touched a whole model ago.  A
+    spin kernel queued after the flush keeps the device busy while the
+    host enqueues the call, so the time between the events is the
+    device's work, not the host's latency in the wrapper (a call that
+    launches many small kernels, as the plain versions do, still counts
+    the host's gaps between them)."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2760,6 +2840,8 @@ def _state_times() -> dict:
         t_bytes += bytes_ms
         bound_ms += max(ops_ms, bytes_ms)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    plan = fa.launch_plan(*ql.shape[:2], chunk, ql.shape[2], k.shape[2],
+                          ql.shape[3], ql.dtype, state=True)
     shape = (f"train (cp run, rank 0's sweep): q {tuple(ql.shape)} over "
              f"{2 * n} kv chunks {tuple(calls[0]['k'].shape)} float32, "
              f"{2 * n} launches, carry in place")
@@ -2767,12 +2849,13 @@ def _state_times() -> dict:
         f"{bound_ms:.4f} ms ({bound_by}: operations {t_ops:.4f}, bytes "
         f"{t_bytes:.4f}), plain {plain_ms:.4f} ms, reference sdpa over the "
         f"gathered row {lib_ms:.4f} ms, kernel/bound {ms / bound_ms:.1f}x, "
-        f"max|diff| vs plain {max_err:.3e} over {int(rows.sum())} rows")
+        f"max|diff| vs plain {max_err:.3e} over {int(rows.sum())} rows; "
+        f"{_plan_str(plan)}")
     del q, k, v, calls, carry
     torch.cuda.empty_cache()
     return {"shape": shape, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "reference_sdpa_ms": lib_ms}
+            "library_ms": None, "reference_sdpa_ms": lib_ms, "launch": plan}
 
 
 def _q8_times(kind) -> dict:
@@ -2946,6 +3029,20 @@ def _gm_times(name, dtype, err) -> dict:
             "library_ms": lib_ms, "library_matmul_alone_ms": mm_ms}
 
 
+def _plan_str(plan) -> str:
+    """One flash_attention launch: its path, grid, threads and shared
+    memory."""
+    grid = f"({plan['grid_x']}, {plan['grid_y']}, {plan['grid_z']})"
+    if plan["decode"]:
+        what = (f"decode path, clusters of {plan['cluster']}, "
+                f"{plan['keys_tile']}-key tiles, rows <= {plan['rows_tile']}")
+    else:
+        what = (f"tiled path, {plan['rows_tile']} rows x "
+                f"{plan['keys_tile']} keys a tile")
+    return (f"{what}, grid {grid} x {plan['threads']} threads, "
+            f"{plan['smem_bytes']} bytes of shared memory a block")
+
+
 def phase_times(errs, grad_errs, gm_errs, serve_runs, train_runs) -> list:
     """One record per kernel: its numbers at the first shape, and at each
     measured shape under ``per_shape``; launches over the serve and train
@@ -2983,14 +3080,30 @@ def phase_times(errs, grad_errs, gm_errs, serve_runs, train_runs) -> list:
         plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw))
         lib_ms = _time_ms(_sdpa(q, k, v, kw))
         bound_ms, bound_by = _attn_bound(q, k, kw)
+        plan = fa.launch_plan(*q.shape[:2], k.shape[1], q.shape[2],
+                              k.shape[2], q.shape[3], q.dtype)
         log(f"time flash_attention {shape}: kernel {ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, kernel/bound {ms / bound_ms:.1f}x")
+            f"sdpa {lib_ms:.4f} ms, kernel/bound {ms / bound_ms:.1f}x, "
+            f"kernel/sdpa {ms / lib_ms:.2f}x; {_plan_str(plan)}")
         shapes.append({"shape": shape, "max_abs_err": err,
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "library_ms": lib_ms})
+                       "bound_by": bound_by, "library_ms": lib_ms,
+                       "launch": plan})
         if grad_err is not None:  # dq/dk/dv, kernel route vs plain route
             shapes[-1]["grad_max_abs_err"] = grad_err
+        if plan["decode"]:  # the same call over one 64-key tile
+            q1, k1, v1, kw1 = _attn_case(B, S, fa.DECODE_TILE, H, KH, hd,
+                                         torch.float32, seed=99,
+                                         q_pos=[fa.DECODE_TILE - 1] * B,
+                                         kv_valid=[fa.DECODE_TILE - 1] * B)
+            one = _time_ms(lambda: fa.flash_attention(q1, k1, v1, **kw1))
+            log(f"time flash_attention {name} over one {fa.DECODE_TILE}-key "
+                f"tile (q {tuple(q1.shape)}): kernel {one:.4f} ms, bound "
+                f"{_attn_bound(q1, k1, kw1)[0]:.4f} ms: the path's fixed "
+                f"cost")
+            shapes[-1]["one_tile_ms"] = one
+            del q1, k1, v1
         del q, k, v
     records = [{"name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3072,6 +3185,7 @@ def main() -> int:
     env = phase_env()
     phase_build()
     errs = phase_kernel_cases()
+    phase_decode()
     grad_errs = phase_flash_grad()
     phase_state_kernel()
     phase_cp_bitwise()

@@ -42,7 +42,9 @@ SIGNATURES = {
         "repro_flash_attention_fwd": [_P] * 8 + [_I] * 7 + [_L] * 12
                                      + [_I, _I, _F, _F, _P],
         "repro_flash_attention_state": [_P] * 10 + [_I] * 7 + [_L] * 9
-                                       + [_I, _I, _F, _F, _P]},
+                                       + [_I, _I, _F, _F, _P],
+        # B, S, T, H, KH, hd, dtype, state -> the launch shape
+        "repro_flash_attention_plan": [_I] * 8 + [_PI]},
     "odc_gather": {"repro_odc_gather": _RING,
                    "repro_odc_gather_capacity": [_PI],
                    "repro_odc_gather_layers": _GATHER_LAYERS,

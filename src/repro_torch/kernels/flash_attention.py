@@ -32,8 +32,19 @@ attention's building block: one online-softmax sweep of q over a kv
 kernel's state instantiation, which updates the carry in place;
 ``flash_attention_state_plain`` is its plain version, which CPU tensors
 take.  ``state_launches`` counts its launches.
+
+The kernel has two paths behind one entry point, chosen by the C side
+from the shapes: a (batch, kv head) with at most ``decode_rows(hd)``
+flattened query rows (S x G) takes the decode path, which splits the
+keys over a cluster of ``decode_split(KH)`` blocks; more rows take the tiled
+loop, which the state sweep always takes.  ``launch_plan`` reports the
+path and launch shape a call gets, and ``flash_decode_split_plain``
+repeats the decode path's split and merge in plain PyTorch (for the
+tests and the chip smoke test; the wrapper never calls it).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 from torch.profiler import record_function
@@ -43,6 +54,8 @@ from repro_torch.kernels import _build
 NEG_INF = -2.0e38
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: keys of a tile of the decode path (``csrc/flash_attention.cu``)
+DECODE_TILE = 64
 
 launches = 0
 state_launches = 0
@@ -131,6 +144,54 @@ def _check(q, k, v, *tensors):
         if t is not None and t.device != q.device:
             raise ValueError("positions and segment ids must lie on q's "
                              "device")
+
+
+def decode_rows(hd):
+    """The most flattened query rows (S x G) of a (batch, kv head) that
+    take the decode path (``decode_rows`` in ``csrc/flash_attention.cu``):
+    16, or 8 at head dim 256."""
+    return 8 if hd == 256 else 16
+
+
+def decode_split(kv_heads):
+    """Blocks of a decode cluster (``decode_split`` in
+    ``csrc/flash_attention.cu``): 8, halved while the clusters of one
+    batch row would hold more than 64 blocks; tile t goes to block
+    t % decode_split(KH)."""
+    n = 8
+    while n > 1 and n * kv_heads > 64:
+        n //= 2
+    return n
+
+
+_PLAN_KEYS = ("decode", "grid_x", "grid_y", "grid_z", "threads",
+              "smem_bytes", "cluster", "rows_tile", "keys_tile")
+
+
+def launch_plan(B, S, T, H, KH, hd, dtype=torch.float32, state=False):
+    """The launch a kernel call of these shapes gets, launching nothing:
+    its path (``decode`` True or False), grid, threads, dynamic shared
+    memory bytes, cluster size and tile (rows: BQ or the decode
+    instantiation's row bound; keys).  Builds the kernel library."""
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    err = _build.library("flash_attention").repro_flash_attention_plan(
+        B, S, T, H, KH, hd, _DTYPE_CODES[dtype], int(bool(state)), out)
+    if err != 0:
+        raise ValueError(f"no flash_attention launch for B={B} S={S} T={T} "
+                         f"H={H} KH={KH} hd={hd} {dtype}: CUDA error {err}")
+    plan = dict(zip(_PLAN_KEYS, out))
+    plan["decode"] = bool(plan["decode"])
+    return plan
+
+
+def _rows16(t):
+    """t, or a contiguous copy of it when one of its K/V rows would not
+    start on 16 bytes: the kernel reads rows in 16-byte pieces.  Every
+    main-path call passes its k and v as they are."""
+    vec = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s % vec == 0 for s in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _int32(t, shape):
@@ -271,6 +332,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, logit_softcap=0.0,
         scale = q.shape[-1] ** -0.5
     qp, kp, qs, ks = _mask_args(q, k, q_positions, kv_positions,
                                 q_segment_ids, kv_segment_ids)
+    k, v = _rows16(k), _rows16(v)
     return _FlashAttention.apply(q, k, v, qp, kp, qs, ks, bool(causal),
                                  int(window), float(logit_softcap),
                                  float(scale))
@@ -378,6 +440,7 @@ def flash_attention_state(q, k, v, carry=None, *, causal=True, window=0,
     qp, kp, qs, ks = _mask_args(q, k, q_positions, kv_positions,
                                 q_segment_ids, kv_segment_ids)
     T, KH = k.shape[1], k.shape[2]
+    k, v = _rows16(k), _rows16(v)
     m, l, acc = carry
     fn = _build.library("flash_attention").repro_flash_attention_state
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
@@ -393,3 +456,52 @@ def flash_attention_state(q, k, v, carry=None, *, causal=True, window=0,
                            f"CUDA error {err}")
     state_launches += 1
     return carry
+
+
+# ---------------------------------------------------------------------------
+# the decode path's algorithm, in plain PyTorch
+# ---------------------------------------------------------------------------
+def flash_decode_split_plain(q, k, v, *, causal=True, window=0,
+                             logit_softcap=0.0, q_positions=None,
+                             kv_positions=None, q_segment_ids=None,
+                             kv_segment_ids=None, scale=None):
+    """The decode kernel's split and merge: the keys cut into tiles of
+    ``DECODE_TILE``, tile t to split ``t % decode_split(KH)``; each split's
+    partial (m, l, acc) from ``flash_attention_state_plain`` on a fresh
+    carry, or the fresh carry itself, (NEG_INF, 0, 0), where no (row, key)
+    pair of a batch row's split is valid (the kernel skips such a split);
+    the partials merged in split order as the cluster's rank 0 merges
+    them, ``acc / max(l, 1e-30)``.  Used by the tests and the chip smoke
+    test, never by the wrapper."""
+    B, S, H, hd = q.shape
+    T, nsplit = k.shape[1], decode_split(k.shape[2])
+    q_positions, kv_positions = _defaults(q, k, q_positions, kv_positions)
+    tile = torch.arange(T, device=k.device) // DECODE_TILE
+    parts = []
+    for x in range(nsplit):
+        carry = fresh_carry(B, S, H, hd, q.device)
+        idx = torch.nonzero(tile % nsplit == x).flatten()
+        if idx.numel():
+            ks = (None if kv_segment_ids is None
+                  else kv_segment_ids.index_select(1, idx))
+            kp = kv_positions.index_select(1, idx)
+            mine = flash_attention_state_plain(
+                q, k.index_select(1, idx), v.index_select(1, idx),
+                causal=causal, window=window, logit_softcap=logit_softcap,
+                q_positions=q_positions, kv_positions=kp,
+                q_segment_ids=q_segment_ids, kv_segment_ids=ks, scale=scale)
+            live = attn_mask(q_positions, kp, q_segment_ids, ks,
+                             causal=causal, window=window).flatten(1).any(1)
+            carry = tuple(torch.where(live.view(B, *[1] * (a.dim() - 1)), a,
+                                      f) for a, f in zip(mine, carry))
+        parts.append(carry)
+    M = parts[0][0]
+    for m, _, _ in parts[1:]:
+        M = torch.maximum(M, m)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        f = torch.exp(m - M)
+        L = L + l * f
+        A = A + acc * f[..., None]
+    return (A / torch.clamp(L, min=1e-30)[..., None]).to(q.dtype)

@@ -1,5 +1,8 @@
 """Card tests of the port: the CUDA flash-attention kernel against its
-plain version, its gradient, its launch counter and its input checks; the
+plain version, its gradient, its launch counter and its input checks, its
+two paths at the decode threshold, the decode path against its split
+algorithm and bitwise the same for a row in any batch, and the state sweep
+bitwise the monolithic kernel over chunks of 64, 128 and 256 keys; the
 ODC ring kernels and their chained-layer versions against the plain rings
 and their refusal of a grid that cannot be co-resident; the state sweep
 kernel against its plain version, and the cp ring over it against the
@@ -93,6 +96,101 @@ def test_kernel_refuses_before_launch(cuda):
     with pytest.raises(TypeError):
         fa.flash_attention(q, k.bfloat16(), v)
     assert fa.launches == before
+
+
+def _close_on_valid_rows(out, ref, kw, dtype):
+    rows = fa.attn_mask(kw["q_positions"], kw["kv_positions"],
+                        kw.get("q_segment_ids"), kw.get("kv_segment_ids"),
+                        causal=kw.get("causal", True),
+                        window=kw.get("window", 0)).any(-1)
+    o, r = out.float()[rows], ref.float()[rows]
+    return bool(torch.isfinite(o).all()) and bool(
+        ((o - r).abs() <= TOL[dtype] * (1 + r.abs())).all())
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paths_at_the_decode_threshold(cuda, dtype, hd, extra):
+    """rows = S x G at the decode path's threshold take the decode path,
+    one more row the tiled loop; both agree with the plain version and
+    launch once."""
+    rows = fa.decode_rows(hd) + extra
+    S, G = (rows, 1) if extra else (rows // 2, 2)
+    B, T, KH = 3, 300, 2
+    q, k, v, pos = _inputs(cuda, dtype, B, S, T, G * KH, KH, hd,
+                           last=[40, 299, 170])
+    pos["q_positions"] = pos["q_positions"] - S + 1 + torch.arange(
+        S, device=cuda, dtype=torch.int32)
+    plan = fa.launch_plan(B, S, T, G * KH, KH, hd, dtype)
+    assert plan["decode"] == (extra == 0)
+    assert plan["cluster"] == (fa.decode_split(KH) if extra == 0 else 1)
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, **pos)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v, **pos)
+    assert _close_on_valid_rows(out, ref, pos, dtype)
+
+
+@pytest.mark.parametrize("S", [1, 40])
+def test_kernel_takes_kv_rows_off_16_bytes(cuda, S):
+    """k and v whose rows do not start on 16 bytes (a row stride of 129
+    floats) are copied by the wrapper, then run by either path."""
+    q, k, v, pos = _inputs(cuda, torch.float32, 2, S, 90, 4, 2, 128,
+                           last=[89, 50])
+    wide = [torch.zeros(2, 90, 2, 129, device=cuda) for _ in range(2)]
+    for w, x in zip(wide, (k, v)):
+        w[..., :128] = x
+    ko, vo = (w[..., :128] for w in wide)
+    out = fa.flash_attention(q, ko, vo, **pos)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q, k, v, **pos)
+    assert _close_on_valid_rows(out, ref, pos, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [{}, {"window": 96}, {"logit_softcap": 30.0},
+                                {"segments": True}])
+def test_decode_kernel_matches_split_plain(cuda, dtype, kw):
+    """The decode path at qwen's decode shape (12/2 heads, hd 128) against
+    ``flash_decode_split_plain`` (its algorithm) and the plain version."""
+    kw = dict(kw)
+    q, k, v, pos = _inputs(cuda, dtype, 4, 1, 700, 12, 2, 128,
+                           last=[699, 64, 300, 5], seed=3)
+    if kw.pop("segments", False):
+        ks = (torch.arange(700, device=cuda)[None] >= 50).int().expand(4, 700)
+        pos.update(q_segment_ids=torch.ones(4, 1, dtype=torch.int32,
+                                            device=cuda),
+                   kv_segment_ids=ks.contiguous())
+    kw.update(pos)
+    assert fa.launch_plan(4, 1, 700, 12, 2, 128, dtype)["decode"]
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    for ref in (fa.flash_decode_split_plain(q, k, v, **kw),
+                fa.flash_attention_plain(q, k, v, **kw)):
+        assert _close_on_valid_rows(out, ref, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KH,hd", [(12, 2, 128), (32, 32, 64)])
+def test_decode_row_is_the_same_in_any_batch(cuda, dtype, H, KH, hd):
+    """The decode split depends on neither the batch size nor the other
+    rows: each row of a batch of 8 equals the same row run alone, bit for
+    bit (8 splits at 2 kv heads, 2 at 32); the batch agrees with the
+    split algorithm."""
+    last = [543, 527, 3, 64, 300, 511, 128, 400]
+    q, k, v, pos = _inputs(cuda, dtype, 8, 1, 544, H, KH, hd, last=last,
+                           seed=4)
+    out = fa.flash_attention(q, k, v, **pos)
+    assert _close_on_valid_rows(
+        out, fa.flash_decode_split_plain(q, k, v, **pos), pos, dtype)
+    for b in range(8):
+        one = fa.flash_attention(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1],
+            q_positions=pos["q_positions"][b:b + 1],
+            kv_positions=pos["kv_positions"][b:b + 1])
+        assert torch.equal(one, out[b:b + 1])
 
 
 def test_reduced_serve_on_card_matches_cpu(cuda):
@@ -419,6 +517,33 @@ def test_ring_forward_is_bitwise_the_monolithic_kernel(cuda, dtype, n,
     out[:, perm] = torch.cat(outs, 1)
     ref = fa.flash_attention(q, k, v, q_positions=pos, kv_positions=pos,
                              q_segment_ids=seg, kv_segment_ids=seg)
+    torch.cuda.synchronize()
+    rows = fa.attn_mask(pos, pos, seg, seg, causal=True, window=0).any(-1)
+    assert torch.equal(out[rows], ref[rows])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+def test_state_sweep_is_bitwise_the_monolithic_kernel(cuda, dtype, hd, chunk):
+    """The state kernel swept over chunks of 64, 128 or 256 keys from a
+    fresh carry (one launch a chunk), finished, equals the monolithic
+    kernel on the whole row bit for bit on rows with a valid key: the
+    chunks are multiples of every kv tile, and both run one tile loop."""
+    S = 768
+    q, k, v, pos, seg = _packed(cuda, dtype, 2, S, 8, 2, hd, seed=6)
+    kw = dict(q_positions=pos, q_segment_ids=seg)
+    carry = None
+    before = fa.state_launches
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        carry = fa.flash_attention_state(
+            q, k[:, sl], v[:, sl], carry, kv_positions=pos[:, sl],
+            kv_segment_ids=seg[:, sl], **kw)
+    assert fa.state_launches == before + S // chunk
+    ref = fa.flash_attention(q, k, v, kv_positions=pos, kv_segment_ids=seg,
+                             **kw)
+    out = fa.finish_attention(carry, dtype)
     torch.cuda.synchronize()
     rows = fa.attn_mask(pos, pos, seg, seg, causal=True, window=0).any(-1)
     assert torch.equal(out[rows], ref[rows])
