@@ -23,8 +23,12 @@ full width and 40 of its 64 layers with two ranks as collective x layer
 and ODC x minibatch (step 0 against the plain scan route, one profiled
 step).  The gather_matmul kernel (the ODC gather fused with its
 consumer matmul) against its plain version at qwen-1.5b's MLP and
-zamba2's in_proj shapes on 2 and 4 ranks, float32 and bfloat16, and its
-refusal of ranks on two devices.  The hybrid family: zamba2-1.2b served
+zamba2's in_proj shapes on 2 and 4 ranks, float32 and bfloat16, on its
+two routes (bf16 on the tensor cores, whose SASS must hold HGMMA; f32 and
+bf16 rows off 16 bytes on the CUDA cores), each call's route held to the
+C side's plan and counted, and its refusal of ranks on two devices.  The
+single-leaf scatter (an owner-side pull) allocates nothing but its
+outputs and gives the same bits on any grid.  The hybrid family: zamba2-1.2b served
 at full width and depth (38 scans and 6 attention calls per prefill, its
 logits against the plain scan and attention routes) and trained at full
 width and depth with two ranks as collective x layer, ODC x minibatch and
@@ -127,9 +131,13 @@ CP_GRAD_TOL = GRAD_TOL
 # lengths of the samples packed into the cp checks' 8192-token row
 CP_ROW_LENS = (3000, 2500, 2000)
 
-# ring cases: ranks, shard elements, dtypes
-RING_NS = (2, 3, 4, 8)
-RING_SIZES = (1, 1000, 2 ** 20)
+# single-leaf ring cases: ranks, shard elements (1 and 1001 odd: the pull
+# scatter's chunks start off 16 bytes), dtypes
+RING_NS = (2, 3, 4, 8, 16)
+RING_SIZES = (1, 1001, 2 ** 20)
+# chained ring cases: ranks (16 needs a non-portable cluster of 16 blocks;
+# the card tests hold that case)
+LAYER_RING_NS = (2, 3, 4, 8)
 # qwen-1.5b's largest leaf, the stacked w_up (28, 1536, 8960), as each of
 # 2 ranks holds it; and a 2**24-element shard on 4 ranks
 W_UP_SHARD = (28, 768, 8960)
@@ -272,8 +280,18 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f}s")
     for name, rec in logs.items():
         for line in rec["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  {name}: {line.strip()}")
+    # gather_matmul's bf16 route must reach the tensor cores: HGMMA in the
+    # SASS of the built library
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    lib = _build._target("gather_matmul")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"gather_matmul SASS ({lib.name}): {hgmma} HGMMA lines")
+    if hgmma == 0:
+        fail("gather_matmul's tensor-core route has no HGMMA in its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -827,7 +845,42 @@ def phase_rings() -> dict:
     if bad:
         fail("ring kernels disagree with the plain rings:\n  "
              + "\n  ".join(bad))
+    _scatter_alloc_and_grid(g)
     return {"cases": len(cases), "rel": worst_rel}
+
+
+def _scatter_alloc_and_grid(g):
+    """The pull scatter allocates its outputs and nothing else (no staging,
+    no flags), and gives the same bits on any grid."""
+    from repro_torch.kernels import odc_scatter as S
+
+    n, c = 4, 2 ** 22
+    ys = [torch.randn(n * c, generator=g, device="cuda") for _ in range(n)]
+    ref = S.odc_scatter_accumulate_plain(ys)
+    S.odc_scatter_accumulate(ys)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = S.odc_scatter_accumulate(ys)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - before
+    outputs = sum(o.numel() * o.element_size() for o in out)
+    same = all(torch.equal(a, b) for a, b in zip(out, ref))
+    del out
+    grids = {}
+    for grid in (1, 7, 1 << 20):
+        out = S.odc_scatter_accumulate(ys, blocks_per_rank=grid)
+        torch.cuda.synchronize()
+        grids[grid] = all(torch.equal(a, b) for a, b in zip(out, ref))
+        del out
+    log(f"pull scatter, n={n} c={c} float32: peak growth {grew} bytes in a "
+        f"call, its outputs {outputs}; bitwise the plain ring {same}, on "
+        f"grids of 1, 7 and 2**20 blocks a rank {list(grids.values())}")
+    if grew != outputs or not same or not all(grids.values()):
+        fail("the pull scatter allocates more than its outputs or is not "
+             "bitwise the plain ring on every grid")
+    del ys, ref
+    torch.cuda.empty_cache()
 
 
 def _layer_ring_case(n, order, dtype, L, c, g):
@@ -870,7 +923,7 @@ def phase_layer_rings() -> dict:
 
     g = torch.Generator(device="cuda").manual_seed(4)
     bad, ok, hops = [], 0, 0
-    cases = [(n, order, dtype, L) for n in RING_NS
+    cases = [(n, order, dtype, L) for n in LAYER_RING_NS
              for order in _ring_orders(n)
              for dtype in (torch.float32, torch.bfloat16)
              for L in LAYER_RING_LS]
@@ -890,7 +943,7 @@ def phase_layer_rings() -> dict:
         cap = 2 * _ring.capacity(_build_lib("odc_gather"),
                                  "repro_odc_gather_layers_capacity", 2,
                                  _ring.chain_layout("gather", 2).smem_bytes)
-    log(f"chained ring kernels: {len(cases)} cases (n in {RING_NS}, natural "
+    log(f"chained ring kernels: {len(cases)} cases (n in {LAYER_RING_NS}, natural "
         f"and profile-ordered, float32 and bfloat16, L in {LAYER_RING_LS}, "
         f"ragged shards, up to {hops} hops in a launch): gather, scatter and "
         f"reversed accumulating scatter bitwise equal to the plain rings in "
@@ -1378,6 +1431,65 @@ def phase_mamba_train() -> dict:
 # ---------------------------------------------------------------------------
 # phase 3h: gather_matmul, the kernel against its plain version
 # ---------------------------------------------------------------------------
+# bf16 shapes that TMA cannot take (rows off 16 bytes): the CUDA-core route
+GM_UNALIGNED = {"c 24, f 70": (4, 100, 96, 70), "c 3, f 5": (3, 7, 9, 5)}
+
+
+def _gm_plan_checked(n, m, k, f, dtype) -> dict:
+    """``launch_plan`` of a call with aligned pointers, held to the plan
+    the C side gives for the same route (grid, threads, shared memory,
+    load path)."""
+    import ctypes
+
+    from repro_torch.kernels import _ring
+    from repro_torch.kernels import gather_matmul as GM
+
+    plan = GM.launch_plan(n, m, k, f, dtype)
+    out = (ctypes.c_int * 6)()
+    err = _build_lib("gather_matmul").repro_gather_matmul_plan(
+        n, m, k, f, _ring.DTYPE_CODES[dtype], 0 if plan["route"] == "tc"
+        else 1, 1, out)
+    loads = {0: "tma", 1: "vector", 2: "scalar"}.get(out[5])
+    c_plan = (tuple(out[:3]), out[3], out[4], loads)
+    if err != 0 or c_plan != (plan["grid"], plan["threads"],
+                              plan["smem_bytes"], plan["loads"]):
+        fail(f"gather_matmul plan {plan} disagrees with the C side's "
+             f"{c_plan} (error {err})")
+    return plan
+
+
+def _gm_plan_str(plan) -> str:
+    return (f"{plan['route']} route, {plan['bm']} x {plan['bn']} tiles, "
+            f"k step {plan['bk']}, {plan['stages']} stages, grid "
+            f"{plan['grid']} x {plan['threads']} threads, "
+            f"{plan['smem_bytes']} bytes of shared memory, {plan['loads']} "
+            f"loads")
+
+
+def _gm_unaligned_cases():
+    """bf16 shapes off TMA's 16-byte rows, against the plain version: one
+    launch each on the CUDA-core route."""
+    from repro_torch.kernels import gather_matmul as GM
+
+    for i, (name, (n, m, k, f)) in enumerate(GM_UNALIGNED.items()):
+        xs, ws = _gm_inputs(n, m, k, f, torch.bfloat16, seed=20 + i)
+        before = (GM.launches_tc, GM.launches_simt)
+        outs = GM.gather_matmul(xs, ws)
+        torch.cuda.synchronize()
+        moved = (GM.launches_tc - before[0], GM.launches_simt - before[1])
+        ref = GM.gather_matmul_plain(xs, ws)
+        d = max(float((o.float() - r.float()).abs().max())
+                for o, r in zip(outs, ref))
+        scale = max(float(r.float().abs().max()) for r in ref)
+        plan = _gm_plan_checked(n, m, k, f, torch.bfloat16)
+        log(f"gather_matmul vs plain [bfloat16] unaligned {name}: {n} ranks, "
+            f"x {(m, k)}, shard {(k // n, f)}: max|diff| {d:.3e} (tol "
+            f"{GM_TOL[torch.bfloat16]:g} of {scale:.3e}); launches by route "
+            f"{moved}; {_gm_plan_str(plan)}")
+        if moved != (0, 1) or plan["route"] != "simt" or \
+                d > GM_TOL[torch.bfloat16] * scale:
+            fail(f"gather_matmul unaligned {name}: launches by route {moved} "
+                 f"(want (0, 1)), max|diff| {d}")
 def _gm_inputs(n, m, k, f, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     xs = [torch.randn((m, k), generator=g, device="cuda").to(dtype)
@@ -1398,12 +1510,14 @@ def phase_gather_matmul() -> dict:
 
     runs = []
     train.reset_launches()
+    by_route = (GM.launches_tc, GM.launches_simt)
     for dtype in (torch.float32, torch.bfloat16):
         for i, (name, (n, m, k, f)) in enumerate(GM_CASES.items()):
             xs, ws = _gm_inputs(n, m, k, f, dtype, seed=i)
             runs.append((name, dtype, xs, ws, GM.gather_matmul(xs, ws)))
     torch.cuda.synchronize()
     got = train.read_launches()
+    by_route = (GM.launches_tc - by_route[0], GM.launches_simt - by_route[1])
     errs, bad = {}, []
     for name, dtype, xs, ws, outs in runs:
         n, m, k, f = GM_CASES[name]
@@ -1420,22 +1534,31 @@ def phase_gather_matmul() -> dict:
                    and d <= GM_TOL[dtype] * scale)
         errs[(name, dtype)] = worst_abs
         tag = str(dtype).replace("torch.", "")
+        plan = _gm_plan_checked(n, m, k, f, dtype)
+        want_route = "tc" if dtype == torch.bfloat16 else "simt"
+        ok &= plan["route"] == want_route
         log(f"gather_matmul vs plain [{tag:8s}] {name:15s} {n} ranks, x "
             f"{(m, k)}, shard {(k // n, f)}: max|diff| {worst_abs:.3e} "
             f"({worst_rel:.3e} of max|plain|, tol {GM_TOL[dtype]:g}) "
-            f"{'ok' if ok else 'MISMATCH'}")
+            f"{'ok' if ok else 'MISMATCH'}; {_gm_plan_str(plan)}")
         if not ok:
             bad.append(f"{name} {tag}")
         del ref
     want = 2 * len(GM_CASES)
     others = {k: v for k, v in got.items() if k != "gather_matmul" and v}
     log(f"gather_matmul launches {got['gather_matmul']} (want {want}: one "
-        f"per call for every rank), other launches {others or 0}")
-    if got["gather_matmul"] != want or others:
-        fail(f"gather_matmul: launches {got}, want {want} of it alone")
+        f"per call for every rank), by route: tensor cores {by_route[0]}, "
+        f"CUDA cores {by_route[1]} (want {len(GM_CASES)} each: every bf16 "
+        f"case on the tensor cores, every f32 one on the CUDA cores), other "
+        f"launches {others or 0}")
+    if got["gather_matmul"] != want or others or by_route != (
+            len(GM_CASES), len(GM_CASES)):
+        fail(f"gather_matmul: launches {got}, by route {by_route}, want "
+             f"{want} of it alone, {len(GM_CASES)} on each route")
     if bad:
         fail(f"gather_matmul disagrees with its plain version: {bad}")
     del runs
+    _gm_unaligned_cases()
     # ranks on two devices: refused before any launch
     xs, ws = _gm_inputs(2, 64, 64, 64, torch.float32, seed=9)
     before = GM.launches
@@ -2992,8 +3115,8 @@ def _gm_times(name, dtype, err) -> dict:
     """Kernel, plain and library times of gather_matmul at one of
     GM_CASES' shapes, and its bound: the larger of the operations (2 m k f
     per rank, every rank) at the card's peak for the type (f32: the CUDA
-    cores' 67 TFLOP/s; bf16: the dense tensor-core 989 TFLOP/s, which the
-    kernel does not use) and the bytes (x and the shards read once, the
+    cores' 67 TFLOP/s, the route it takes; bf16: the dense tensor-core 989
+    TFLOP/s, its route) and the bytes (x and the shards read once, the
     outputs written once) at 3.35 TB/s.  Library: per rank one
     ``torch.matmul(x, torch.cat(shards))`` (TF32 off), and the matmul
     alone on a W concatenated beforehand."""
@@ -3015,7 +3138,8 @@ def _gm_times(name, dtype, err) -> dict:
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     tag = str(dtype).replace("torch.", "")
     shape_s = (f"{name}: {n} ranks, x {(m, k)}, shard {(k // n, f)} {tag}")
-    log(f"time gather_matmul {shape_s}: kernel {ms:.4f} ms "
+    log(f"time gather_matmul {shape_s} ({GM.route(n, m, k, f, dtype)} "
+        f"route): kernel {ms:.4f} ms "
         f"({ops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms "
         f"({bound_by}: {ops / 1e9:.1f} GFLOP at "
         f"{PEAK_FLOPS[dtype] / 1e12:g} TFLOP/s; bytes {bytes_ms:.4f} ms), "
@@ -3026,7 +3150,9 @@ def _gm_times(name, dtype, err) -> dict:
     torch.cuda.empty_cache()
     return {"shape": shape_s, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms, "library_matmul_alone_ms": mm_ms}
+            "library_ms": lib_ms, "library_matmul_alone_ms": mm_ms,
+            # tensor cores or CUDA cores; the record's "route" stays "cuda"
+            "gm_route": GM.route(n, m, k, f, dtype)}
 
 
 def _plan_str(plan) -> str:

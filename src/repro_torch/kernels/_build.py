@@ -50,7 +50,9 @@ SIGNATURES = {
                    "repro_odc_gather_layers": _GATHER_LAYERS,
                    # n, dynamic shared memory -> clusters
                    "repro_odc_gather_layers_capacity": [_I, _I, _PI]},
-    "odc_scatter": {"repro_odc_scatter": _RING,
+    # the pull scatter: inputs, outputs, order, n, c, dtype, blocks per
+    # rank, the stream
+    "odc_scatter": {"repro_odc_scatter": [_P, _P, _P, _I, _L, _I, _I, _P],
                     "repro_odc_scatter_capacity": [_I, _PI],
                     "repro_odc_scatter_layers": _SCATTER_LAYERS,
                     "repro_odc_scatter_layers_capacity": [_I, _I, _I,
@@ -65,9 +67,13 @@ SIGNATURES = {
                "repro_odc_scatter_q8_capacity": [_PI]},
     # x, dt, A, B, C, y, state; b, s, h, p, g, n, Q, dtype; the stream
     "ssd_scan": {"repro_ssd_scan": [_P] * 7 + [_I] * 8 + [_P]},
-    # the ranks' x, shard and output pointer tables; n, m, k, f, dtype;
-    # the stream
-    "gather_matmul": {"repro_gather_matmul": [_P] * 3 + [_I] * 5 + [_P]},
+    # the ranks' x, shard and output pointer tables; n, m, k, f (the
+    # CUDA-core route: dtype); the stream
+    "gather_matmul": {"repro_gather_matmul_tc": [_P] * 3 + [_I] * 4 + [_P],
+                      "repro_gather_matmul_simt": [_P] * 3 + [_I] * 5
+                                                  + [_P],
+                      # n, m, k, f, dtype, route, aligned -> the launch
+                      "repro_gather_matmul_plan": [_I] * 7 + [_PI]},
 }
 
 _libs: dict = {}

@@ -5,11 +5,14 @@ per-layer signals between a chained ring on a side stream and the compute
 stream (the driver's stream memory operations).
 
 Every rank of the ring lies on one card in this version, so one launch
-runs every rank's side of every hop.  A single-leaf ring signals its hops
-through flags and credits in device buffers owned by a ``RingState`` (one
-per kernel and device), never reset: each call reads its epoch from a
-device counter that the wrapper advances after the launch (see
-``csrc/odc_ring.cuh``).  A chained ring is a cluster kernel
+runs every rank's side of every hop.  A single-leaf gather (and the q8
+rings) signals its hops through flags and credits in device buffers owned
+by a ``RingState`` (one per kernel and device), never reset: each call
+reads its epoch from a device counter that the wrapper advances after the
+launch (see ``csrc/odc_ring.cuh``).  The single-leaf scatter has no hops:
+each owner pulls every contribution to its chunk
+(``odc_scatter.odc_scatter_accumulate``), with nothing but the checks and
+the tables from here.  A chained ring is a cluster kernel
 (``csrc/odc_cluster.cuh``): cluster b holds slice b of every layer for
 all n ranks, its hops move tiles from one block's shared memory into its
 right neighbour's under mbarriers, and nothing but the outputs lives in

@@ -1,7 +1,8 @@
 // Shared pieces of the single-leaf ODC ring kernels (odc_gather.cu,
-// odc_scatter.cu, odc_q8.cu): the per-call argument block, the flag
-// protocol and the copy helpers.  The chained rings are cluster kernels
-// with a protocol of their own (odc_cluster.cuh).
+// odc_q8.cu): the per-call argument block, the flag protocol and the copy
+// helpers.  The single-leaf scatter (odc_scatter.cu) pulls instead of
+// pushing and takes only the constants; the chained rings are cluster
+// kernels with a protocol of their own (odc_cluster.cuh).
 //
 // Protocol (one-sided push, as in the TPU kernels): every rank owns two
 // staging slots.  A hop writes its payload into the right neighbour's slot,

@@ -1,29 +1,58 @@
-// ODC scatter-accumulate: the ring reduce-scatter of gradient
-// contributions as one-sided pushes of partial sums, every rank of the ring
-// on this card, in one cooperative launch.
+// ODC scatter-accumulate, single leaf: every owner pulls its chunk from
+// every rank's contribution and sums it in registers, in one launch for
+// all ranks.
 //
 // Replaces the TPU kernel repro.kernels.odc_scatter.
 // odc_scatter_accumulate_pallas (src/repro/kernels/odc_scatter.py:79,
-// _scatter_kernel at :33): a partial sum travels the ring, and each rank
-// adds its own contribution to the chunk that just arrived (the owner-side
-// accumulate that stands in for the paper's polling daemon).  After n-1
-// hops rank r holds chunk r summed over all ranks.  Protocol: odc_ring.cuh.
+// _scatter_kernel at :33): there a partial sum travels the ring, and each
+// rank adds its own contribution to the chunk that just arrived (the
+// owner-side accumulate that stands in for the paper's polling daemon).
+// After n-1 hops rank r holds chunk r summed over all ranks.
 //
-// Grid (blocks_per_rank, n): block (b, r) carries slice b of the chunk
-// through every hop.  Rank r's input is (n, c), its output (c).  At hop h
-// (1-based) rank r sends the partial of chunk order[(pos - h) mod n]; each
-// hop computes acc = arrived + own in the input type (float32, or bfloat16
-// rounded to nearest even from the float sum), in the reference's order
-// (repro.core.odc.ring_scatter_accumulate), so the result is bitwise equal
-// to the plain ring.
+// Why no ring here: every rank of this version lies on one card, so rank
+// o's chunk of every rank's contribution is already addressable through
+// the pointer table.  A ring's hops would only write each partial sum to
+// device memory and read it back at the next hop (the previous version
+// moved about (3n - 1) * c bytes a rank against the bound's (n + 1) * c),
+// and make every block wait on flags for its neighbour, so that every
+// block had to be resident at once.  The owner instead reads the n
+// contributions to its chunk directly: the paper's on-demand
+// point-to-point pulls in place of a collective.
+//
+// Order, bitwise the plain ring (repro.core.odc.ring_scatter_accumulate):
+// with p the ring position of owner o and at(q) the rank at position
+// q mod n,
+//     acc = y_at(p+1)[o], then acc = acc + y_at(p+t)[o] for t = 2..n,
+// each add in the input type (float32, or bfloat16 rounded to nearest even
+// from the float sum, as odc_add4).  This is the order in which the ring's
+// partial sum meets the contributions on its way to o.
+//
+// Grid (blocks_per_rank, n): block (b, o) walks owner o's chunk in
+// 16-byte vectors, grid-stride over the b blocks.  A thread keeps
+// ODC_PULL_UNROLL vectors of ODC_PULL_GROUP contributors in flight at once
+// (16 independent loads for n >= 8), then adds them in order; unrolled
+// loads in registers rather than a cp.async.bulk ring in shared memory,
+// since every byte is used once by the thread that loads it and nothing
+// is shared within the block, so shared memory would only add a copy and
+// a barrier.  Every byte is touched once: loads go through the read-only
+// path (ld.global.nc, __ldg) and stores carry the streaming hint (__stcs).
+// (__ldcs loads, and ld.global.nc.L1::no_allocate ones, measured slower on
+// the H100: PERF.md.)  Elements before the first 16-byte boundary of the
+// output and after the last whole vector take a scalar path in the same
+// kernel; contributions whose chunks are aligned unlike the output take it
+// throughout.  No block waits for another: no flags,
+// no staging, no residency rule; the grid is any size (the wrapper's
+// default: two waves of the blocks the card holds at once).
 //
 // Bound on one H100 SXM (3.35 TB/s HBM3): with c bytes per chunk and n
-// ranks on the card, the least traffic is n*n*c read (every rank's full
-// contribution once) plus n*c written (every rank's chunk):
-// (n^2 + n) * c / 3.35e12 s.  What this simple design leaves on the table:
-// every partial sum is written to a staging slot and read back at the next
-// hop (2*(n-1)*c more traffic per rank), and a block that waits for its left
-// neighbour spins instead of doing other work.
+// ranks on the card, every contribution is read once (n * n * c) and every
+// chunk written once (n * c): (n^2 + n) * c / 3.35e12 s, which is the
+// traffic this kernel makes.
+//
+// Across cards (ROADMAP queue 1 item 9): a contribution on a peer card is
+// read the same way through a peer pointer (cudaIpc or a peer-mapped
+// allocation) over NVLink, so the table simply holds that pointer; the
+// reads become remote and the sum and its order stay as they are.
 #include <cuda_bf16.h>
 
 #include "odc_ring.cuh"
@@ -56,87 +85,96 @@ template <typename T> struct Vec16;
 template <> struct Vec16<float> { using type = float4; };
 template <> struct Vec16<__nv_bfloat16> { using type = uint4; };
 
-// dst[i] = arrived[i] + own[i] for i < n; `arrived` is null for a plain
-// copy of `own` (the first hop), else a staging slot read through L2.
+#define ODC_PULL_THREADS 256
+#define ODC_PULL_UNROLL 2  // vectors of each contributor a thread holds
+#define ODC_PULL_GROUP 8   // contributors loaded before they are added
+
+struct OdcPullArgs {
+  const void* in[ODC_MAX_RANKS];  // rank r's contribution, (n, c)
+  void* out[ODC_MAX_RANKS];       // rank r's sum, (c)
+  int order[ODC_MAX_RANKS];       // ring position -> rank
+  int pos[ODC_MAX_RANKS];         // rank -> ring position
+  int n;
+  long long elems;                // c
+};
+
 template <typename T>
-__device__ __forceinline__ void odc_accumulate(T* dst, const T* arrived,
-                                               const T* own, long long n) {
+__global__ void __launch_bounds__(ODC_PULL_THREADS)
+odc_scatter_pull_kernel(const __grid_constant__ OdcPullArgs a) {
   using V = typename Vec16<T>::type;
   constexpr int W = 16 / sizeof(T);
-  long long done = 0;
-  if (odc_aligned16(dst, arrived, own)) {
-    const long long nv = n / W;
-    V* d = reinterpret_cast<V*>(dst);
-    const V* o = reinterpret_cast<const V*>(own);
-    const V* s = reinterpret_cast<const V*>(arrived);
-    for (long long i = threadIdx.x; i < nv; i += blockDim.x) {
-      V v = o[i];
-      if (arrived) v = odc_add4(__ldcg(s + i), v);
-      __stcg(d + i, v);
+  constexpr int U = ODC_PULL_UNROLL, G = ODC_PULL_GROUP;
+  const int n = a.n, o = blockIdx.y;
+  const long long c = a.elems;
+  // src[t]: chunk o of the contribution added at step t of the ring order
+  __shared__ const T* src[ODC_MAX_RANKS];
+  if (threadIdx.x < n) {
+    const int rank = a.order[(a.pos[o] + 1 + threadIdx.x) % n];
+    src[threadIdx.x] = static_cast<const T*>(a.in[rank]) + (long long)o * c;
+  }
+  __syncthreads();
+  T* out = static_cast<T*>(a.out[o]);
+
+  // [0, head) and [tail, c) are scalar; [head, tail) whole vectors
+  long long head = (long long)((16 - ((uintptr_t)out & 15)) & 15) / sizeof(T);
+  if (head > c) head = c;
+  bool vec = true;
+  for (int t = 0; t < n; ++t)
+    vec &= (((uintptr_t)(src[t] + head)) & 15) == 0;
+  if (!vec) head = c;
+  const long long nv = (c - head) / W, tail = head + nv * W;
+
+  const long long step = (long long)gridDim.x * ODC_PULL_THREADS * U;
+  V* ov = reinterpret_cast<V*>(out + head);
+  for (long long base = (long long)blockIdx.x * ODC_PULL_THREADS * U +
+                        threadIdx.x;
+       base < nv; base += step) {
+    V acc[U];
+    for (int g0 = 0; g0 < n; g0 += G) {
+      V v[G][U];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (g0 + j >= n) break;
+        const V* s = reinterpret_cast<const V*>(src[g0 + j] + head);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const long long i = base + (long long)u * ODC_PULL_THREADS;
+          if (i < nv) v[j][u] = __ldg(s + i);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (g0 + j >= n) break;
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          acc[u] = (g0 + j == 0) ? v[j][u] : odc_add4(acc[u], v[j][u]);
+      }
     }
-    done = nv * W;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long i = base + (long long)u * ODC_PULL_THREADS;
+      if (i < nv) __stcs(ov + i, acc[u]);
+    }
   }
-  for (long long i = done + threadIdx.x; i < n; i += blockDim.x) {
-    T v = own[i];
-    if (arrived) v = odc_add1(__ldcg(arrived + i), v);
-    dst[i] = v;
-  }
-}
 
-template <typename T>
-__global__ void __launch_bounds__(ODC_THREADS)
-odc_scatter_kernel(const __grid_constant__ OdcArgs a) {
-  const int n = a.n;
-  const int r = blockIdx.y;
-  const int p = a.pos[r];
-  const int right = a.order[(p + 1) % n];
-  const int B = gridDim.x, b = blockIdx.x;
-  const unsigned long long epoch = *a.epoch;
-  long long lo, hi;
-  odc_slice(a, &lo, &hi);
-  const long long len = hi - lo, c = a.elems;
-
-  const T* y = static_cast<const T*>(a.in[r]);
-  T* out = static_cast<T*>(a.out[r]);
-  T* mine = static_cast<T*>(a.stage[r]);
-  T* theirs = static_cast<T*>(a.stage[right]);
-  unsigned* my_flags = a.flags + (size_t)r * 2 * B;
-  unsigned* their_flags = a.flags + (size_t)right * 2 * B;
-  // my contribution to the chunk owned `off` ring positions behind me
-  auto own = [&](int off) {
-    return y + (long long)a.order[((p - off) % n + n) % n] * c + lo;
-  };
-
-  if (n == 1) {
-    odc_accumulate<T>(out + lo, nullptr, own(0), len);
-    return;
+  // the scalar elements: the head, then the tail
+  const long long ns = head + (c - tail);
+  for (long long e = (long long)blockIdx.x * ODC_PULL_THREADS + threadIdx.x;
+       e < ns; e += (long long)gridDim.x * ODC_PULL_THREADS) {
+    const long long i = e < head ? e : tail + (e - head);
+    T acc = src[0][i];
+    for (int t = 1; t < n; ++t) acc = odc_add1(acc, src[t][i]);
+    out[i] = acc;
   }
-  // hop 1: my contribution to my left neighbour's chunk, as it is
-  odc_accumulate<T>(theirs + (long long)1 * c + lo, nullptr, own(1), len);
-  odc_signal(their_flags + (size_t)1 * B + b, odc_tag(epoch, 1));
-  for (int h = 2; h < n; ++h) {
-    const int in_slot = (h - 1) & 1, out_slot = h & 1;
-    odc_wait(my_flags + (size_t)in_slot * B + b, odc_tag(epoch, h - 1));
-    // the right neighbour must have consumed hop h - 2 from this slot
-    if (h >= 3) odc_wait(a.credits + (size_t)right * B + b,
-                         odc_tag(epoch, h - 2));
-    odc_accumulate<T>(theirs + (long long)out_slot * c + lo,
-                      mine + (long long)in_slot * c + lo, own(h), len);
-    odc_signal(their_flags + (size_t)out_slot * B + b, odc_tag(epoch, h));
-    odc_signal(a.credits + (size_t)r * B + b, odc_tag(epoch, h - 1));
-  }
-  // the last hop brings my own chunk, summed over every other rank
-  const int last = (n - 1) & 1;
-  odc_wait(my_flags + (size_t)last * B + b, odc_tag(epoch, n - 1));
-  odc_accumulate<T>(out + lo, mine + (long long)last * c + lo, own(n), len);
 }
 
 static const void* odc_scatter_fn(int dtype) {
-  return dtype == 0 ? (const void*)odc_scatter_kernel<float>
-                    : (const void*)odc_scatter_kernel<__nv_bfloat16>;
+  return dtype == 0 ? (const void*)odc_scatter_pull_kernel<float>
+                    : (const void*)odc_scatter_pull_kernel<__nv_bfloat16>;
 }
 
-// dtype: 0 = float32, 1 = bfloat16
+// Blocks of the pull kernel the card holds at once (dtype: 0 = float32,
+// 1 = bfloat16), from which the wrapper sizes the default grid.
 extern "C" int repro_odc_scatter_capacity(int dtype, int* blocks) {
   int dev, sms, per_sm;
   cudaError_t e = cudaGetDevice(&dev);
@@ -144,37 +182,40 @@ extern "C" int repro_odc_scatter_capacity(int dtype, int* blocks) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, odc_scatter_fn(dtype), ODC_THREADS, 0);
+        &per_sm, odc_scatter_fn(dtype), ODC_PULL_THREADS, 0);
   if (e != cudaSuccess) return (int)e;
   *blocks = per_sm * sms;
   return 0;
 }
 
-// Returns a CUDA error code (0 on success); refuses, without launching, a
-// grid whose blocks cannot all be resident at once.
+// in, out: host arrays of n device pointers (rank r's (n, c) contribution
+// and its (c) sum); order: ring position -> rank.  Returns a CUDA error
+// code (0 on success; cudaErrorInvalidValue for arguments it does not
+// take).
 extern "C" int repro_odc_scatter(const void* const* in, void* const* out,
-                                 void* const* stage, const int* order, int n,
-                                 long long elems, int dtype,
-                                 int blocks_per_rank, unsigned* flags,
-                                 unsigned* credits,
-                                 const unsigned long long* epoch,
+                                 const int* order, int n, long long elems,
+                                 int dtype, int blocks_per_rank,
                                  void* stream) {
-  if (n < 1 || n > ODC_MAX_RANKS || blocks_per_rank < 1 ||
+  if (n < 1 || n > ODC_MAX_RANKS || blocks_per_rank < 1 || elems < 0 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  int cap;
-  int e = repro_odc_scatter_capacity(dtype, &cap);
-  if (e != 0) return e;
-  if ((long long)n * blocks_per_rank > cap)
-    return (int)cudaErrorCooperativeLaunchTooLarge;
-  OdcArgs a = odc_args(in, out, stage, order, n, elems, dtype == 0 ? 4 : 2,
-                       blocks_per_rank, flags, credits, epoch);
-  void* params[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      odc_scatter_fn(dtype), dim3(blocks_per_rank, n), dim3(ODC_THREADS),
-      params, 0, static_cast<cudaStream_t>(stream));
-  cudaError_t last = cudaGetLastError();  // clears a launch error
-  return (int)(err != cudaSuccess ? err : last);
+  OdcPullArgs a = {};
+  for (int i = 0; i < n; ++i) {
+    a.in[i] = in[i];
+    a.out[i] = out[i];
+    a.order[i] = order[i];
+    a.pos[order[i]] = i;
+  }
+  a.n = n;
+  a.elems = elems;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(blocks_per_rank, n);
+  if (dtype == 0)
+    odc_scatter_pull_kernel<float><<<grid, ODC_PULL_THREADS, 0, st>>>(a);
+  else
+    odc_scatter_pull_kernel<__nv_bfloat16>
+        <<<grid, ODC_PULL_THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -1,19 +1,23 @@
-"""ODC scatter-accumulate: the hand-written CUDA ring kernel and its plain
-PyTorch version.
+"""ODC scatter-accumulate: the hand-written CUDA kernels and their plain
+PyTorch versions.
 
 Counterpart of ``repro.kernels.odc_scatter.odc_scatter_accumulate_pallas``
 as the JAX package calls it (``repro.kernels.ops.odc_scatter_accumulate``):
 rank r's full-size (n*c, ...) contribution -> rank r's (c, ...) chunk,
-summed over the ranks hop by hop in ring order (``acc = arrived + own``),
-so the kernel is bitwise equal to the plain ring.  The wrapper takes the
-per-rank list of contributions and returns the per-rank list of chunks;
-``order`` is the ring order (ring position -> rank, None for the natural
-ring).
+summed over the ranks in ring order, so the kernel is bitwise equal to the
+plain ring.  The wrapper takes the per-rank list of contributions and
+returns the per-rank list of chunks; ``order`` is the ring order (ring
+position -> rank, None for the natural ring).
 
 ``odc_scatter_accumulate`` launches ``csrc/odc_scatter.cu`` once for all
 ranks when the inputs lie on a CUDA device, and runs the plain ring
 (``odc_scatter_accumulate_plain``) when they lie on the CPU; there is no
-other route.  ``launches`` counts kernel launches.
+other route.  Every rank lies on one card, so the kernel has no ring: each
+owner pulls its chunk from every contribution through the pointer table
+and sums it in registers in the order the ring's partial sum meets them
+(``odc_scatter_accumulate_owner_plain`` is that order written in
+PyTorch).  It allocates nothing but the outputs, and no block waits for
+another.  ``launches`` counts kernel launches.
 
 ``odc_scatter_accumulate_layers`` is the counterpart of
 ``repro.kernels.odc_scatter.odc_scatter_accumulate_layers_pallas``
@@ -33,17 +37,58 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from repro_torch.core.odc import ring_positions
 from repro_torch.core.odc import \
     ring_scatter_accumulate as odc_scatter_accumulate_plain
 from repro_torch.kernels import _build, _ring
 
 launches = 0
 layers_launches = 0
-_STATE = _ring.RingState()
+# threads of a block and 16-byte vectors of a contributor each thread
+# holds at once (ODC_PULL_THREADS, ODC_PULL_UNROLL in csrc/odc_scatter.cu)
+PULL_THREADS = 256
+PULL_UNROLL = 2
+# The default grid holds two waves of resident blocks: blocks are
+# scheduled owner by owner, so the first wave reads half the owners'
+# chunks, and the DRAM sees half as many streams at once (measured a
+# little faster than one wave on an H100)
+PULL_WAVES = 2
 
 __all__ = ["odc_scatter_accumulate", "odc_scatter_accumulate_plain",
-           "launches", "odc_scatter_accumulate_layers",
+           "odc_scatter_accumulate_owner_plain", "launches",
+           "odc_scatter_accumulate_layers",
            "odc_scatter_accumulate_layers_plain", "layers_launches"]
+
+
+def odc_scatter_accumulate_owner_plain(ys: Sequence[torch.Tensor],
+                                       order: Optional[Sequence[int]] = None
+                                       ) -> List[torch.Tensor]:
+    """The pull kernel's order in PyTorch, owner by owner: with p the ring
+    position of owner o, ``acc = y_at(p+1)[o]``, then ``acc = acc +
+    y_at(p+t)[o]`` for t = 2..n (positions mod n), each add in the input
+    type.  Bitwise ``odc_scatter_accumulate_plain``: the ring's partial
+    sum for o meets the contributions in this order."""
+    n = len(ys)
+    pos = ring_positions(n, order)
+    c = ys[0].shape[0] // n
+    at = (lambda q: q % n) if order is None else (lambda q: order[q % n])
+    outs = []
+    for o in range(n):
+        acc = ys[at(pos[o] + 1)][o * c:(o + 1) * c]
+        for t in range(2, n + 1):
+            acc = acc + ys[at(pos[o] + t)][o * c:(o + 1) * c]
+        outs.append(acc if n > 1 else acc.clone())
+    return outs
+
+
+def pull_blocks_per_rank(c: int, elem_bytes: int, n: int, cap: int) -> int:
+    """The pull kernel's default grid, in blocks for each owner: enough
+    for every thread to hold PULL_UNROLL vectors of the chunk, at most
+    PULL_WAVES times as many as the card holds at once over all n owners
+    (``cap``); each block strides over its share."""
+    vectors = -(-c * elem_bytes // 16)
+    want = max(1, -(-vectors // (PULL_THREADS * PULL_UNROLL)))
+    return max(1, min(want, PULL_WAVES * cap // n))
 
 
 def odc_scatter_accumulate(ys: Sequence[torch.Tensor],
@@ -52,8 +97,8 @@ def odc_scatter_accumulate(ys: Sequence[torch.Tensor],
                            ) -> List[torch.Tensor]:
     """Every rank's owned chunk, summed over the ranks: the CUDA kernel for
     CUDA tensors, the plain ring for CPU tensors.  ``blocks_per_rank``
-    overrides the kernel's block count (a launch whose blocks cannot all
-    be resident raises)."""
+    overrides the kernel's grid (default ``pull_blocks_per_rank``); any
+    grid gives the same bits."""
     global launches
     if ys[0].device.type == "cpu":
         return odc_scatter_accumulate_plain(ys, order)
@@ -64,19 +109,26 @@ def odc_scatter_accumulate(ys: Sequence[torch.Tensor],
         raise ValueError(f"odc_scatter_accumulate: leading dim of "
                          f"{tuple(y.shape)} is not a multiple of {n} ranks")
     c = y.numel() // n
-    code = _ring.DTYPE_CODES[y.dtype]
     lib = _build.library("odc_scatter")
-    with torch.cuda.device(device):
-        cap = _ring.capacity(lib, "repro_odc_scatter_capacity", code)
     if blocks_per_rank is None:
-        blocks_per_rank = _ring.blocks_per_rank(c * y.element_size(), n, cap)
+        code = _ring.DTYPE_CODES[y.dtype]
+        with torch.cuda.device(device):
+            cap = _ring.capacity(lib, "repro_odc_scatter_capacity", code)
+        blocks_per_rank = pull_blocks_per_rank(c, y.element_size(), n, cap)
+    if not 1 <= blocks_per_rank < 2 ** 31:
+        raise ValueError(f"odc_scatter_accumulate: blocks_per_rank "
+                         f"{blocks_per_rank} is not in [1, 2**31)")
     outs = [torch.empty((y.shape[0] // n,) + tuple(y.shape[1:]),
                         dtype=y.dtype, device=device) for _ in range(n)]
-    stages = [torch.empty(2 * c, dtype=y.dtype, device=device)
-              for _ in range(n)]
-    _ring.launch(lib.repro_odc_scatter, "odc_scatter_accumulate", ys, outs,
-                 stages, order, c, code, blocks_per_rank, cap, _STATE,
-                 device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = lib.repro_odc_scatter(
+            _ring.pointers(ys), _ring.pointers(outs),
+            _ring.order_table(n, order), n, c, _ring.DTYPE_CODES[y.dtype],
+            blocks_per_rank, stream)
+    if err != 0:
+        raise RuntimeError(f"odc_scatter_accumulate kernel failed to "
+                           f"launch: CUDA error {err}")
     launches += 1
     return outs
 

@@ -4,15 +4,18 @@ two paths at the decode threshold, the decode path against its split
 algorithm and bitwise the same for a row in any batch, and the state sweep
 bitwise the monolithic kernel over chunks of 64, 128 and 256 keys; the
 ODC ring kernels and their chained-layer versions against the plain rings
-and their refusal of a grid that cannot be co-resident; the state sweep
+and their refusal of a grid that cannot be co-resident (the pull scatter:
+any grid, and no allocation but its outputs); the state sweep
 kernel against its plain version, and the cp ring over it against the
 monolithic kernel (bitwise) and against its plain route (gradient); a
 reduced serve run and reduced train steps (ODC x minibatch, collective x
 layer, ODC under the overlap schedule, cp) on the card against the same
 run on the CPU; the Mamba2 SSD scan kernel against its plain version
 (forward and gradient), and reduced mamba2 serve and train runs on the
-card against the CPU; the gather_matmul kernel against its plain version
-(f32 within 1e-5 of max |plain|, bf16 within 1e-2) and its refusals; and
+card against the CPU; the gather_matmul kernel on each of its routes
+(tensor cores, CUDA cores; route counters) against its plain version
+(f32 within 1e-5 of max |plain|, bf16 within 1e-2), each hop kept to
+its own shard's columns of x, and its refusals; and
 reduced zamba2 (5 layers: a tail, two invocations of the shared block)
 serve and train runs on the card against the CPU.  Each test needs an NVIDIA GPU and
 skips without one.
@@ -250,16 +253,20 @@ def test_kernel_gradient_matches_plain(cuda, B, S, T, H, KH, hd, kw):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [2, 3, 4, 8])
+@pytest.mark.parametrize("n", [2, 3, 4, 8, 16])
 @pytest.mark.parametrize("ordered", [False, True])
 def test_ring_kernels_match_plain_rings(cuda, dtype, n, ordered):
+    """Both single-leaf kernels bitwise against the plain rings; shards of
+    (c, 3) and an odd 1-D c, whose chunks start off 16 bytes (the pull
+    scatter's scalar head and tail)."""
     from repro_torch.kernels import odc_gather as G
     from repro_torch.kernels import odc_scatter as S
 
     order = list(reversed(range(n))) if ordered else None
     gen = torch.Generator(device=cuda).manual_seed(n)
-    for c in (1, 1000, 4099):
-        xs = [torch.randn(c, 3, generator=gen, device=cuda).to(dtype)
+    for shape in ((1, 3), (1000, 3), (4099, 3), (1001,)):
+        c = shape[0]
+        xs = [torch.randn(shape, generator=gen, device=cuda).to(dtype)
               for _ in range(n)]
         before = G.launches
         out = G.odc_gather(xs, order)
@@ -267,8 +274,8 @@ def test_ring_kernels_match_plain_rings(cuda, dtype, n, ordered):
         assert G.launches == before + 1
         ref = G.odc_gather_plain(xs, order)
         assert all(torch.equal(a, b) for a, b in zip(out, ref))
-        ys = [torch.randn(n * c, 3, generator=gen, device=cuda).to(dtype)
-              for _ in range(n)]
+        ys = [torch.randn((n * c,) + shape[1:], generator=gen,
+                          device=cuda).to(dtype) for _ in range(n)]
         before = S.launches
         out = S.odc_scatter_accumulate(ys, order)
         torch.cuda.synchronize()
@@ -278,15 +285,16 @@ def test_ring_kernels_match_plain_rings(cuda, dtype, n, ordered):
 
 
 def test_ring_refuses_a_grid_that_cannot_be_resident(cuda):
+    """The single-leaf gather's blocks wait on each other, so a grid that
+    cannot all be resident is refused before it runs (the pull scatter
+    has no such rule: ``test_scatter_takes_any_grid``)."""
     from repro_torch.kernels import odc_gather as G
-    from repro_torch.kernels import odc_scatter as S
 
     xs = [torch.ones(64, device=cuda) for _ in range(4)]
-    for fn, mod in ((G.odc_gather, G), (S.odc_scatter_accumulate, S)):
-        before = mod.launches
-        with pytest.raises(RuntimeError, match="resident"):
-            fn(xs, blocks_per_rank=1 << 20)
-        assert mod.launches == before
+    before = G.launches
+    with pytest.raises(RuntimeError, match="resident"):
+        G.odc_gather(xs, blocks_per_rank=1 << 20)
+    assert G.launches == before
     with pytest.raises(TypeError):
         G.odc_gather([x.half() for x in xs])
     with pytest.raises(ValueError, match="contiguous"):
@@ -294,6 +302,50 @@ def test_ring_refuses_a_grid_that_cannot_be_resident(cuda):
     out = G.odc_gather(xs)  # the card is usable after a refusal
     torch.cuda.synchronize()
     assert all(torch.equal(o, torch.ones(256, device=cuda)) for o in out)
+
+
+def test_scatter_allocates_only_its_outputs(cuda):
+    """The pull scatter allocates its outputs and nothing else: no staging
+    in device memory, no flag state."""
+    from repro_torch.kernels import odc_scatter as S
+
+    n, c = 4, 1 << 18
+    ys = [torch.randn(n * c, device=cuda) for _ in range(n)]
+    S.odc_scatter_accumulate(ys)  # built and loaded before counting
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    like = [torch.empty(c, device=cuda) for _ in range(n)]
+    outputs = torch.cuda.memory_allocated(cuda) - before
+    del like
+    torch.cuda.reset_peak_memory_stats(cuda)
+    out = S.odc_scatter_accumulate(ys)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) - before == outputs
+    assert torch.cuda.max_memory_allocated(cuda) - before == outputs
+    ref = S.odc_scatter_accumulate_plain(ys)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_takes_any_grid(cuda, dtype):
+    """No block of the pull scatter waits for another, so any grid runs,
+    a million blocks a rank included, and gives the same bits; a grid
+    outside [1, 2**31) is refused before launch."""
+    from repro_torch.kernels import odc_scatter as S
+
+    n, order = 3, [1, 2, 0]
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    ys = [torch.randn(n * 5003, generator=gen, device=cuda).to(dtype)
+          for _ in range(n)]
+    ref = S.odc_scatter_accumulate_plain(ys, order)
+    for grid in (1, 3, None, 1 << 20):
+        out = S.odc_scatter_accumulate(ys, order, blocks_per_rank=grid)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, ref)), grid
+    before = S.launches
+    with pytest.raises(ValueError, match="blocks_per_rank"):
+        S.odc_scatter_accumulate(ys, blocks_per_rank=0)
+    assert S.launches == before
 
 
 def _chain_edges(kind, dtype, n):
@@ -928,28 +980,88 @@ def test_reduced_mamba_train_steps_on_card_match_cpu(cuda, comm, schedule):
 GM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,m,k,f", [(2, 64, 128, 64), (4, 100, 96, 70),
-                                     (3, 7, 9, 5), (2, 256, 1536, 896)])
-def test_gather_matmul_kernel_matches_plain(cuda, dtype, n, m, k, f):
-    from repro_torch.kernels import gather_matmul as GM
+def _gm_inputs(dev, dtype, n, m, k, f, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xs = [torch.randn((m, k), generator=g, device=dev).to(dtype)
+          for _ in range(n)]
+    ws = [torch.randn((k // n, f), generator=g, device=dev).to(dtype)
+          for _ in range(n)]
+    return xs, ws
 
-    g = torch.Generator(device=cuda).manual_seed(n * 1000 + m)
-    xs = [torch.randn((m, k), generator=g, device=cuda).to(dtype)
-          for _ in range(n)]
-    ws = [torch.randn((k // n, f), generator=g, device=cuda).to(dtype)
-          for _ in range(n)]
-    before = GM.launches
+
+def _gm_launch(GM, xs, ws, want_route):
+    """One call, which must launch once on ``want_route`` (route counters)
+    for either dtype: bf16 on the route the shapes give, f32 always on
+    the CUDA cores."""
+    n, (m, k), f = len(xs), xs[0].shape, ws[0].shape[1]
+    rt = want_route if xs[0].dtype == torch.bfloat16 else "simt"
+    assert GM.route(n, m, k, f, xs[0].dtype) == rt
+    before = (GM.launches, GM.launches_tc, GM.launches_simt)
     outs = GM.gather_matmul(xs, ws)
     torch.cuda.synchronize()
-    assert GM.launches == before + 1
+    assert (GM.launches, GM.launches_tc, GM.launches_simt) == (
+        before[0] + 1, before[1] + (rt == "tc"), before[2] + (rt == "simt"))
+    return outs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,k,f,bf16_route", [
+    (2, 64, 128, 64, "tc"), (4, 100, 96, 70, "simt"),
+    (3, 7, 9, 5, "simt"), (2, 256, 1536, 896, "tc"),
+    # c = 72, not a multiple of the tensor cores' 64-row k step
+    (2, 200, 144, 256, "tc"),
+    # f = 200, not a multiple of either route's column tile
+    (2, 130, 128, 200, "tc"),
+    (2, 1, 128, 64, "tc"),  # m = 1
+    (16, 96, 384, 136, "tc"),  # 16 ranks, c = 24
+    (2, 64, 24, 64, "simt"),  # c = 12: 24-byte bf16 rows, off TMA's 16
+])
+def test_gather_matmul_kernel_matches_plain(cuda, dtype, n, m, k, f,
+                                            bf16_route):
+    from repro_torch.kernels import gather_matmul as GM
+
+    xs, ws = _gm_inputs(cuda, dtype, n, m, k, f, seed=n * 1000 + m)
+    outs = _gm_launch(GM, xs, ws, bf16_route)
+    before = GM.launches
     ref = GM.gather_matmul_plain(xs, ws)
-    assert GM.launches == before + 1
+    assert GM.launches == before
     for o, r in zip(outs, ref):
         assert o.dtype == dtype and o.shape == (m, f)
         err = float((o.float() - r.float()).abs().max())
         assert torch.isfinite(o.float()).all()
         assert err <= GM_TOL[dtype] * float(r.float().abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,k,f,bf16_route", [
+    (2, 40, 144, 64, "tc"), (3, 40, 72, 64, "tc"),
+    (3, 20, 39, 24, "simt")])
+def test_gather_matmul_keeps_each_hop_to_its_shard(cuda, dtype, n, m, k,
+                                                   f, bf16_route):
+    """An inf in x's first columns of shard s + 1 (those a k step past
+    the end of shard s would reach, c not a multiple of the step) makes
+    its row of the output +-inf through its own hop only: the plain
+    version gives +-inf by the sign of W, and a read of those columns
+    with shard s's zero-filled rows past c would make NaN (0 * inf).
+    Even rows hold one inf each, odd rows none."""
+    from repro_torch.kernels import gather_matmul as GM
+
+    xs, ws = _gm_inputs(cuda, dtype, n, m, k, f, seed=11)
+    ws = [torch.where(w == 0, torch.ones_like(w), w) for w in ws]
+    c = k // n
+    for x in xs:
+        for row in range(0, m, 2):
+            x[row, (row // 2) % n * c + row % min(c, 8)] = float("inf")
+    outs = _gm_launch(GM, xs, ws, bf16_route)
+    ref = GM.gather_matmul_plain(xs, ws)
+    for o, r in zip(outs, ref):
+        o, r = o.float(), r.float()
+        assert not torch.isnan(r).any()
+        assert torch.equal(torch.isinf(o), torch.isinf(r))
+        assert torch.equal(o[torch.isinf(r)], r[torch.isinf(r)])
+        fin = torch.isfinite(r)
+        assert (o[fin] - r[fin]).abs().max() <= GM_TOL[dtype] * max(
+            1.0, float(r[fin].abs().max()))
 
 
 def test_gather_matmul_refuses_before_launch(cuda):
