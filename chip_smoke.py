@@ -27,8 +27,11 @@ zamba2's in_proj shapes on 2 and 4 ranks, float32 and bfloat16, on its
 two routes (bf16 on the tensor cores, whose SASS must hold HGMMA; f32 and
 bf16 rows off 16 bytes on the CUDA cores), each call's route held to the
 C side's plan and counted, and its refusal of ranks on two devices.  The
-single-leaf scatter (an owner-side pull) allocates nothing but its
-outputs and gives the same bits on any grid.  The hybrid family: zamba2-1.2b served
+single-leaf scatter (an owner-side pull) and the two single-leaf gathers
+(f32 and q8: read-once broadcasts) allocate nothing but their outputs and
+give the same bits on any grid; the gathers also from sources off 16
+bytes and for NaN bit patterns, and row 1 is timed at the (k, v) leaf the
+cp run gathers.  The hybrid family: zamba2-1.2b served
 at full width and depth (38 scans and 6 attention calls per prefill, its
 logits against the plain scan and attention routes) and trained at full
 width and depth with two ranks as collective x layer, ODC x minibatch and
@@ -142,8 +145,8 @@ LAYER_RING_NS = (2, 3, 4, 8)
 # 2 ranks holds it; and a 2**24-element shard on 4 ranks
 W_UP_SHARD = (28, 768, 8960)
 # chained ring cases: layers (28 on 4 and 8 ranks: 84 and 196 hops, above
-# the single-leaf kernels' tag stride of 64), and the ragged per-layer
-# shard of each case
+# the q8 scatter's tag stride of 64), and the ragged per-layer shard of
+# each case
 LAYER_RING_LS = (1, 3, 28)
 # q8 ring cases: ranks and shard shapes (ragged against the 256-value
 # chunks), and w_up's shard on 2 ranks
@@ -849,6 +852,16 @@ def phase_rings() -> dict:
     return {"cases": len(cases), "rel": worst_rel}
 
 
+def _peak_growth(fn):
+    """(result, peak bytes allocated above the start in one call of fn)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
 def _scatter_alloc_and_grid(g):
     """The pull scatter allocates its outputs and nothing else (no staging,
     no flags), and gives the same bits on any grid."""
@@ -858,12 +871,7 @@ def _scatter_alloc_and_grid(g):
     ys = [torch.randn(n * c, generator=g, device="cuda") for _ in range(n)]
     ref = S.odc_scatter_accumulate_plain(ys)
     S.odc_scatter_accumulate(ys)
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    out = S.odc_scatter_accumulate(ys)
-    torch.cuda.synchronize()
-    grew = torch.cuda.max_memory_allocated() - before
+    out, grew = _peak_growth(lambda: S.odc_scatter_accumulate(ys))
     outputs = sum(o.numel() * o.element_size() for o in out)
     same = all(torch.equal(a, b) for a, b in zip(out, ref))
     del out
@@ -1150,24 +1158,135 @@ def phase_q8_rings() -> dict:
     return {"cases": len(cases)}
 
 
-def phase_ring_refusal():
-    """A launch whose blocks cannot all be resident raises before it
-    runs, and the card is usable after it."""
-    from repro_torch.kernels import odc_gather as G
+def _nan_bits(n, shape, g):
+    """n ranks' int32 leaves of ``shape`` as float32 views, half of them
+    NaN and infinity bit patterns (quiet, signalling, negative, with
+    payloads), the rest random: the cp path sends its segment ids so."""
+    numel = math.prod(shape)
+    pats = torch.tensor([0x7FC00001, 0x7F800001, -1, 0x7F800000,
+                         -0x00400001, 0x7FBFFFFF], dtype=torch.int32,
+                        device="cuda")
+    out = []
+    for _ in range(n):
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, (numel,), generator=g,
+                          dtype=torch.int32, device="cuda")
+        x[::2] = pats.repeat(numel // len(pats) + 1)[:x[::2].numel()]
+        out.append(x.view(shape).view(torch.float32))
+    return out
 
-    xs = [torch.ones(4096, device="cuda") for _ in range(2)]
-    before = G.launches
-    try:
-        G.odc_gather(xs, blocks_per_rank=1 << 20)
-    except RuntimeError as e:
-        log(f"ring refusal: {e}")
-    else:
-        fail("odc_gather launched a grid that cannot be co-resident")
-    out = G.odc_gather(xs)
+
+def phase_gathers() -> dict:
+    """Rows 1 and 9, the read-once broadcast gathers: a call's peak growth
+    equals its outputs' bytes (no staging, no flags), and the same bits as
+    the plain ring on grids of 1, 7 and 2**20 blocks a rank, from sources
+    that are views at storage offset 1 (off 16 bytes), and for NaN bit
+    patterns (int32 leaves as float32 bits).  Then the q8 scatter, still a
+    ring whose blocks wait on each other, refuses a grid that cannot be
+    resident."""
+    from repro_torch.core import odc
+    from repro_torch.kernels import odc_gather as G
+    from repro_torch.kernels import quant as Q
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    grids = (1, 7, 1 << 20)
+    # row 1
+    n, c = 4, 2 ** 22
+    xs = [torch.randn(c, generator=g, device="cuda") for _ in range(n)]
+    ref = G.odc_gather_plain(xs)
+    G.odc_gather(xs)
+    out, grew = _peak_growth(lambda: G.odc_gather(xs))
+    outputs = sum(o.numel() * o.element_size() for o in out)
+    same = all(torch.equal(a, b) for a, b in zip(out, ref))
+    del out
+    on_grid = []
+    for grid in grids:
+        out = G.odc_gather(xs, blocks_per_rank=grid)
+        torch.cuda.synchronize()
+        on_grid.append(all(torch.equal(a, b) for a, b in zip(out, ref)))
+        del out
+    del xs, ref
+    offsets = []
+    for dtype in (torch.float32, torch.bfloat16):
+        views = [torch.randn(1001 * 3 + 1, generator=g, device="cuda")
+                 .to(dtype)[1:].view(1001, 3) for _ in range(3)]
+        ref = G.odc_gather_plain(views, [2, 0, 1])
+        for grid in (1, 7, None):
+            out = G.odc_gather(views, [2, 0, 1], blocks_per_rank=grid)
+            torch.cuda.synchronize()
+            offsets.append(all(torch.equal(a, b) for a, b in zip(out, ref)))
+    bits = _nan_bits(2, (4096, 1, 2), g)
+    want = torch.cat([b.view(torch.int32) for b in bits])
+    out = G.odc_gather(bits)
     torch.cuda.synchronize()
-    if G.launches != before + 1 or not all(torch.equal(o, torch.ones(
-            8192, device="cuda")) for o in out):
-        fail("odc_gather after a refused launch is wrong")
+    nan_ok = all(torch.equal(o.view(torch.int32), want) for o in out)
+    del bits, want, out
+    log(f"broadcast gather (row 1), n={n} c={c} float32: peak growth "
+        f"{grew} bytes in a call, its outputs {outputs}; bitwise the plain "
+        f"ring {same}, on grids of 1, 7 and 2**20 blocks a rank {on_grid}; "
+        f"sources at storage offset 1 (float32, bfloat16 (1001, 3) on 3 "
+        f"ranks, grids 1, 7 and the default) {offsets}; int32 NaN bit "
+        f"patterns (4096, 1, 2) on 2 ranks {nan_ok}")
+    if grew != outputs or not (same and all(on_grid) and all(offsets)
+                               and nan_ok):
+        fail("the broadcast gather allocates more than its outputs or is "
+             "not bitwise the plain ring on every grid and source")
+    # row 9
+    nc = 2 ** 14
+    enc = [Q.quantize_int8(torch.randn(nc * 256, generator=g,
+                                       device="cuda")) for _ in range(n)]
+    qs, ss = [q for q, _ in enc], [s for _, s in enc]
+    del enc
+    ref = (odc.ring_gather(qs), odc.ring_gather(ss))
+
+    def equal(got, qref, sref):
+        return all(torch.equal(a.view(-1, 256), b) for a, b in
+                   zip(got[0], qref)) and all(
+            torch.equal(a.view(-1, 1), b) for a, b in zip(got[1], sref))
+
+    Q.gather_codes(qs, ss)
+    out, q8_grew = _peak_growth(lambda: Q.gather_codes(qs, ss))
+    q8_outputs = sum(o.numel() * o.element_size() for o in out[0] + out[1])
+    q8_same = equal(out, *ref)
+    del out
+    q8_grid = []
+    for grid in grids:
+        q8_grid.append(equal(Q.gather_codes(qs, ss, blocks_per_rank=grid),
+                             *ref))
+        torch.cuda.synchronize()
+    qv = [torch.cat([q.new_zeros(1), q.view(-1)])[1:].view(nc, 256)
+          for q in qs]
+    sv = [torch.cat([s.new_zeros(1), s.view(-1)])[1:].view(nc, 1)
+          for s in ss]
+    q8_off = [equal(Q.gather_codes(qv, sv, blocks_per_rank=grid), *ref)
+              for grid in (1, 7, None)]
+    torch.cuda.synchronize()
+    del qs, ss, qv, sv, ref
+    log(f"broadcast q8 gather (row 9), n={n} {nc} chunks: peak growth "
+        f"{q8_grew} bytes in a call, its outputs {q8_outputs}; bitwise the "
+        f"plain ring {q8_same}, on grids of 1, 7 and 2**20 blocks a rank "
+        f"{q8_grid}; codes and scales at storage offset 1 {q8_off}")
+    if q8_grew != q8_outputs or not (q8_same and all(q8_grid)
+                                     and all(q8_off)):
+        fail("the q8 gather allocates more than its outputs or is not "
+             "bitwise the plain ring on every grid and source")
+    # row 10 keeps its ring
+    ys = [torch.randn(2048, generator=g, device="cuda") for _ in range(2)]
+    before = Q.scatter_launches
+    try:
+        Q.odc_scatter_accumulate_q8(ys, blocks_per_rank=1 << 20)
+    except RuntimeError as e:
+        log(f"q8 scatter refusal: {e}")
+    else:
+        fail("odc_scatter_accumulate_q8 launched a grid that cannot be "
+             "co-resident")
+    out = Q.odc_scatter_accumulate_q8(ys)
+    torch.cuda.synchronize()
+    if Q.scatter_launches != before + 1 or not all(
+            torch.equal(a, b) for a, b in
+            zip(out, odc.ring_scatter_accumulate_q8(ys))):
+        fail("odc_scatter_accumulate_q8 after a refused launch is wrong")
+    torch.cuda.empty_cache()
+    return {"peak_growth": grew, "q8_peak_growth": q8_grew}
 
 
 # ---------------------------------------------------------------------------
@@ -2209,7 +2328,8 @@ def _profile_train_step(comm="odc", schedule="minibatch", cp=1,
         "flash_attention_state": ("attn_state",),
         "ssd_scan": ("ssd_scan_kernel",),
         "odc_chained": CHAINED,
-        "odc_rings": ("odc_gather_kernel", "odc_scatter_kernel"),
+        "odc_gather": ("odc_gather_kernel",),
+        "odc_scatter": ("odc_scatter_pull_kernel",),
         "gemm": ("gemm", "gemv", "cutlass", "xmma")},
         labels={"flash_backward": BWD_LABEL,
                 "ssd_backward": SSD_BWD_LABEL})
@@ -2367,6 +2487,16 @@ def phase_cp_train() -> dict:
     peak = torch.cuda.max_memory_allocated()
     want = _expected_launches(get_config(ARCH), "cp", "minibatch", summary,
                               summary["dims"])
+    # the leaf cp gathers most (core/cp.py, _gather_seq): a layer's k and
+    # v stacked, (S_loc, B, 2, kv heads, head dim) float32 on cp ranks, a
+    # microbatch row of each rank's --max-tokens; its positions and segment
+    # ids are gathered as often
+    cfg = get_config(ARCH)
+    summary["kv_leaf"] = (CP_TRAIN["max_tokens"], 1, 2, cfg.num_kv_heads,
+                          cfg.resolved_head_dim)
+    summary["kv_ranks"] = CP_TRAIN["cp"]
+    log(f"train cp: the (k, v) leaf _gather_seq receives: "
+        f"{summary['kv_leaf']} float32 on {summary['kv_ranks']} ranks")
     splits = [st["cp_split"] for st in summary["steps"]]
     log(f"train cp x minibatch (data 1 x cp {CP_TRAIN['cp']}, lb_token, "
         f"{CP_TRAIN['max_tokens']} tokens a rank): losses "
@@ -2758,6 +2888,26 @@ def _sdpa(q, k, v, kw):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
+# waves of the card's resident blocks at which the broadcast gathers (rows
+# 1 and 9) are also timed; _ring.PULL_WAVES is their default
+BCAST_WAVE_SWEEP = (1, 2, 4, 8)
+
+
+def _bcast_waves(call, nbytes, n, lib_name, symbol, iters) -> dict:
+    """{waves: (blocks a rank, ms)} of a broadcast gather, ``call(blocks)``
+    on ``nbytes`` bytes a shard (of codes, for row 9) on n ranks, at each
+    of BCAST_WAVE_SWEEP waves of the card's resident blocks."""
+    from repro_torch.kernels import _build, _ring
+
+    cap = _ring.capacity(_build.library(lib_name), symbol)
+    out = {}
+    for waves in BCAST_WAVE_SWEEP:
+        blocks = _ring.pull_blocks_per_rank(nbytes, n, cap,
+                                            _ring.BCAST_UNROLL, waves)
+        out[waves] = (blocks, _time_ms(lambda: call(blocks), iters=iters))
+    return out
+
+
 def _ring_times(kind, n, shape) -> dict:
     """Kernel, plain ring and library times of one ring kernel on n ranks'
     float32 shards of ``shape`` (bound: n*c read + n^2*c written for the
@@ -2779,6 +2929,11 @@ def _ring_times(kind, n, shape) -> dict:
         lib_ms = _time_ms(lambda: [torch.cat(xs) for _ in range(n)],
                           iters=10)
         nbytes = (n + n * n) * c_bytes
+        waves = _bcast_waves(lambda b: G.odc_gather(xs, blocks_per_rank=b),
+                             c_bytes, n, "odc_gather",
+                             "repro_odc_gather_capacity", 10)
+        log(f"time odc_gather n={n} {shape} by waves (blocks a rank, ms): "
+            f"{waves}")
     else:
         ys = [torch.randn((n * shape[0],) + tuple(shape[1:]), generator=g,
                           device="cuda") for _ in range(n)]
@@ -3038,6 +3193,11 @@ def _q8_times(kind) -> dict:
         lib_ms = _time_ms(lambda: [(torch.stack(qs), torch.stack(ss))
                                    for _ in range(n)], iters=5, warmup=1)
         nbytes = (n + n * n) * v * e
+        waves = _bcast_waves(
+            lambda b: Q.gather_codes(qs, ss, blocks_per_rank=b), v, n,
+            "odc_q8", "repro_odc_gather_q8_capacity", 5)
+        log(f"time gather (q8) n={n} codes of {W_UP_SHARD} by waves "
+            f"(blocks a rank, ms): {waves}")
         shape_s = f"n={n} codes of float32 shards {W_UP_SHARD}"
     else:
         ys = [torch.randn((n * W_UP_SHARD[0],) + W_UP_SHARD[1:],
@@ -3253,6 +3413,10 @@ def phase_times(errs, grad_errs, gm_errs, serve_runs, train_runs) -> list:
              "src/repro/kernels/odc_scatter.py:89")):
         ring = [_ring_times(kind, 2, W_UP_SHARD),
                 _ring_times(kind, 4, (2 ** 24,))]
+        if kind == "gather":  # the leaf cp gathers most: (k, v) of a layer
+            cp_run = train_runs["cp x minibatch"]
+            ring.append(_ring_times(kind, cp_run["kv_ranks"],
+                                    cp_run["kv_leaf"]))
         records.append({"name": name, "route": "cuda",
                         "source": f"src/repro_torch/kernels/csrc/{src}",
                         "replaces": replaces,
@@ -3317,7 +3481,7 @@ def main() -> int:
     phase_cp_bitwise()
     phase_cp_grad()
     phase_rings()
-    phase_ring_refusal()
+    phase_gathers()
     phase_layer_rings()
     phase_layer_flags()
     phase_codec()

@@ -26,7 +26,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _PI = ctypes.POINTER(ctypes.c_int)
+# the q8 scatter's ring: inputs, outputs, stages, order, n, chunks, dtype,
+# blocks per rank, flags, credits, epoch, the stream
 _RING = [_P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P]
+# the broadcast gathers: inputs and outputs of each payload, n, bytes
+# (row 1) or chunks (row 9) of a shard, blocks per rank, the stream
+_BCAST = [_P, _P, _I, _L, _I, _P]
 # the chained rings: inputs, outputs, order, n, c, element size (gather) or
 # dtype code (scatter), layers; the launch plan (slice, tile bytes, own and
 # first slots, recv slots per hop, blocks per rank); the per-layer signal
@@ -45,7 +50,7 @@ SIGNATURES = {
                                        + [_I, _I, _F, _F, _P],
         # B, S, T, H, KH, hd, dtype, state -> the launch shape
         "repro_flash_attention_plan": [_I] * 8 + [_PI]},
-    "odc_gather": {"repro_odc_gather": _RING,
+    "odc_gather": {"repro_odc_gather": _BCAST,
                    "repro_odc_gather_capacity": [_PI],
                    "repro_odc_gather_layers": _GATHER_LAYERS,
                    # n, dynamic shared memory -> clusters
@@ -59,9 +64,8 @@ SIGNATURES = {
                                                           _PI]},
     "quant": {"repro_quantize": [_P, _P, _P, _L, _P],
               "repro_dequantize": [_P, _P, _P, _L, _P]},
-    # the q8 gather: the ring's arguments, then the ranks' scales in and
-    # out, then the stream
-    "odc_q8": {"repro_odc_gather_q8": _RING[:-1] + [_P, _P, _P],
+    # the q8 gather: codes in and out, then scales in and out
+    "odc_q8": {"repro_odc_gather_q8": [_P, _P] + _BCAST,
                "repro_odc_gather_q8_capacity": [_PI],
                "repro_odc_scatter_q8": _RING,
                "repro_odc_scatter_q8_capacity": [_PI]},

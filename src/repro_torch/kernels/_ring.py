@@ -1,25 +1,29 @@
 """What the ODC ring kernels' wrappers share: input checks, the block
-count, the device-side flag state of the single-leaf rings, the launch
-plan of the chained rings, the launches through ``ctypes``, and the
-per-layer signals between a chained ring on a side stream and the compute
-stream (the driver's stream memory operations).
+count and grid plans, the device-side flag state of the q8 scatter's
+ring, the launch plan of the chained rings, the launches through
+``ctypes``, and the per-layer signals between a chained ring on a side
+stream and the compute stream (the driver's stream memory operations).
 
 Every rank of the ring lies on one card in this version, so one launch
-runs every rank's side of every hop.  A single-leaf gather (and the q8
-rings) signals its hops through flags and credits in device buffers owned
-by a ``RingState`` (one per kernel and device), never reset: each call
-reads its epoch from a device counter that the wrapper advances after the
-launch (see ``csrc/odc_ring.cuh``).  The single-leaf scatter has no hops:
-each owner pulls every contribution to its chunk
-(``odc_scatter.odc_scatter_accumulate``), with nothing but the checks and
-the tables from here.  A chained ring is a cluster kernel
-(``csrc/odc_cluster.cuh``): cluster b holds slice b of every layer for
-all n ranks, its hops move tiles from one block's shared memory into its
-right neighbour's under mbarriers, and nothing but the outputs lives in
-device memory, so a chained launch has no state between calls.  Its
-launch plan (``chain_plan``: tile size, slots, shared memory, slice and
-grid) is a pure function of c, the element size, n and the card's
-co-resident clusters, which the CPU tests check.
+serves every rank.  The single-leaf gathers (``odc_gather.odc_gather``,
+``quant.gather_codes``) and the single-leaf scatter
+(``odc_scatter.odc_scatter_accumulate``) have no hops: each source shard
+is read once and broadcast to its row of every output
+(``csrc/odc_bcast.cuh``), and each owner pulls every contribution to its
+chunk, through the pointer table, with no state between calls.  Their
+default grid is ``pull_blocks_per_rank``.  The q8 scatter alone still
+signals its hops through flags and credits in device buffers owned by a
+``RingState`` (one per device), never reset: each call reads its epoch
+from a device counter that the wrapper advances after the launch (see
+``csrc/odc_ring.cuh``).
+A chained ring is a cluster kernel (``csrc/odc_cluster.cuh``): cluster b
+holds slice b of every layer for all n ranks, its hops move tiles from
+one block's shared memory into its right neighbour's under mbarriers,
+and nothing but the outputs lives in device memory, so a chained launch
+has no state between calls.  Its launch plan (``chain_plan``: tile size,
+slots, shared memory, slice and grid) is a pure function of c, the
+element size, n and the card's co-resident clusters, which the CPU tests
+check.
 """
 from __future__ import annotations
 
@@ -36,6 +40,20 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BYTES_PER_BLOCK = 1 << 16
 # cudaErrorCooperativeLaunchTooLarge
 TOO_LARGE = 720
+# The pull kernels (odc_bcast.cuh's broadcast for rows 1 and 9,
+# odc_scatter.cu's pull for row 3): threads of a block, and the default
+# grid's waves of resident blocks.  Blocks are scheduled source by source
+# (owner by owner), so two waves let the first read half the shards, and
+# the DRAM sees half as many streams at once (measured a little faster
+# than one wave for the scatter on an H100).  The gathers keep two waves
+# on purpose: on an H100 eight were 5% faster at qwen's w_up shard on 2
+# ranks and 5% slower at 2**24 on 4 (chip_smoke.py's times phase sweeps
+# them)
+PULL_THREADS = 256
+PULL_WAVES = 2
+# 16-byte vectors a thread of the broadcast holds between its load and its
+# n stores (ODC_BCAST_UNROLL)
+BCAST_UNROLL = 4
 # A chained ring (odc_gather_layers, odc_scatter_accumulate_layers) runs
 # beside the compute kernels of a training step, so its grid takes at most
 # 1/CHAIN_SHARE of the blocks the card can hold at once (all ranks
@@ -119,13 +137,38 @@ class RingState:
         return flags, credits, epoch
 
 
+_capacities: dict = {}
+
+
 def capacity(lib, symbol: str, *args) -> int:
-    """Blocks of this kernel that the card can hold at once."""
-    out = ctypes.c_int(0)
-    err = getattr(lib, symbol)(*args, ctypes.byref(out))
-    if err != 0:
-        raise RuntimeError(f"{symbol} failed: CUDA error {err}")
-    return out.value
+    """Blocks (or clusters) of this kernel that the current card can hold
+    at once, asked of the card once per device and arguments."""
+    key = (symbol, args, torch.cuda.current_device())
+    if key not in _capacities:
+        out = ctypes.c_int(0)
+        err = getattr(lib, symbol)(*args, ctypes.byref(out))
+        if err != 0:
+            raise RuntimeError(f"{symbol} failed: CUDA error {err}")
+        _capacities[key] = out.value
+    return _capacities[key]
+
+
+def pull_blocks_per_rank(nbytes: int, n: int, cap: int, unroll: int,
+                         waves: int = PULL_WAVES) -> int:
+    """The default grid of a pull kernel, in blocks for each of the n
+    sources (owners) of ``nbytes`` bytes: enough for every thread to hold
+    ``unroll`` 16-byte vectors, at most ``waves`` times as many as the
+    card holds at once over all n (``cap``), at least one."""
+    vectors = -(-nbytes // 16)
+    want = max(1, -(-vectors // (PULL_THREADS * unroll)))
+    return max(1, min(want, waves * cap // n))
+
+
+def check_grid(name: str, blocks: int):
+    """Raises unless a pull kernel can launch ``blocks`` blocks a rank."""
+    if not 1 <= blocks < 2 ** 31:
+        raise ValueError(f"{name}: blocks_per_rank {blocks} is not in "
+                         f"[1, 2**31)")
 
 
 def blocks_per_rank(nbytes: int, n: int, cap: int) -> int:

@@ -1,117 +1,53 @@
-// The compressed (q8) ODC rings of the pipe-int8 backend: the ring gather
-// that relays each shard's chunked int8 encoding, and the ring
-// scatter-accumulate that requantizes its partial sum at every hop, every
-// rank of the ring on this card, each in one cooperative launch.
+// The compressed (q8) ODC rings of the pipe-int8 backend, every rank of
+// the ring on this card: the gather that moves each shard's chunked int8
+// encoding, and the ring scatter-accumulate that requantizes its partial
+// sum at every hop.
 //
 // Replaces the TPU kernels repro.kernels.quant.odc_gather_q8_pallas
 // (src/repro/kernels/quant.py:137, _gather_q8_kernel at :80) and
 // odc_scatter_accumulate_q8_pallas (:242, _scatter_q8_kernel at :174).
 // Their hops are two remote DMAs per hop (int8 values, f32 scales) into
-// the right neighbour's VMEM slots, sharing one credit.  Here a hop is a
-// copy by the sending block into the neighbour's staging slot in device
-// memory, signalled by a flag; the protocol (flags, credits, epochs,
-// ring order) is the fp32 rings' (odc_ring.cuh).  The two payload streams
-// share one flag and one credit per (slot, block), as the TPU kernel's
-// share one credit.
+// the right neighbour's VMEM slots, sharing one credit.
 //
-// A rank's staging buffer is [q slot 0 | q slot 1 | s slot 0 | s slot 1]:
-// chunks * 256 bytes per values slot, chunks * 4 per scales slot.  The
-// argument block counts in chunks (elems = chunks; odc_args rounds a
-// block's share to 8 chunks), so a block's slice is always whole chunks
-// and the scale of every chunk it carries travels with it.  Inside a
-// block each warp takes one chunk at a time (quant.cuh).
+// Gather (repro_odc_gather_q8): rank r's inputs are its shard's codes
+// (chunks, 256) int8 and scales (chunks); its outputs (n, chunks, 256) and
+// (n, chunks), row s holding rank s's encoding as it left rank s (row r is
+// its own).  The wrapper decodes them and writes its own shard back
+// exactly.  Like the f32 gather it has no ring: odc_gather_q8_kernel is
+// the read-once broadcast of odc_bcast.cuh over two payloads in one plain
+// launch, block (b, s) taking whole chunks [lo, hi) of shard s, their
+// 256-byte code rows and their scales, so a chunk's scale travels with it.
+// Any grid; no staging, flags or residency rule.
 //
-// Gather grid (blocks_per_rank, n): rank r's inputs are its shard's codes
-// (chunks, 256) int8 and scales (chunks); its outputs (n, chunks, 256)
-// and (n, chunks), row s holding rank s's encoding as it left rank s (row
-// r is its own).  The wrapper decodes them and writes its own shard back
-// exactly.
-//
-// Scatter grid (blocks_per_rank, n): rank r's input is its (n, chunks,
-// 256) f32 contributions, its output (chunks, 256) f32.  At hop h it
-// sends the int8 encoding of its partial sum of chunk order[(pos - h) mod
-// n]; on arrival it computes dequant(arrived) + own in f32 as one fused
-// multiply-add (what XLA compiles the reference's dequantize-and-add to),
-// in the reference's hop order (repro.core.odc.ring_scatter_accumulate_q8),
-// and requantizes that for the next hop, so it is bitwise the plain ring.
+// Scatter (repro_odc_scatter_q8), one cooperative launch, grid
+// (blocks_per_rank, n): a hop is a copy by the sending block into the
+// neighbour's staging slot in device memory, signalled by a flag; the
+// protocol (flags, credits, epochs, ring order) is odc_ring.cuh's.  The two
+// payload streams share one flag and one credit per (slot, block), as the
+// TPU kernel's share one credit.  A rank's staging buffer is [q slot 0 | q
+// slot 1 | s slot 0 | s slot 1]: chunks * 256 bytes per values slot,
+// chunks * 4 per scales slot.  The argument block counts in chunks (elems
+// = chunks; odc_args rounds a block's share to 8 chunks), so a block's
+// slice is always whole chunks and the scale of every chunk it carries
+// travels with it.  Inside a block each warp takes one chunk at a time
+// (quant.cuh).  Rank r's input is its (n, chunks, 256) f32 contributions,
+// its output (chunks, 256) f32.  At hop h it sends the int8 encoding of its
+// partial sum of chunk order[(pos - h) mod n]; on arrival it computes
+// dequant(arrived) + own in f32 as one fused multiply-add (what XLA
+// compiles the reference's dequantize-and-add to), in the reference's hop
+// order (repro.core.odc.ring_scatter_accumulate_q8), and requantizes that
+// for the next hop, so it is bitwise the plain ring.
 //
 // Bound on one H100 SXM (3.35 TB/s HBM3), with v values per shard (chunk)
 // and n ranks on the card, each encoded value 1 + 4/256 bytes: the gather
-// reads n encoded shards and writes n*n: (n + n^2) * v * 1.0156 B; the
-// scatter reads n*n*v f32 contributions and writes n*v f32 sums:
-// (n^2 + n) * v * 4 B, over 3.35e12 B/s.  What this simple design leaves
-// on the table, as in the fp32 rings: every hop goes through a staging
-// slot, and a waiting block spins instead of working.
+// reads n encoded shards and writes n*n: (n + n^2) * v * 1.0156 B, the
+// traffic the broadcast makes; the scatter reads n*n*v f32 contributions
+// and writes n*v f32 sums: (n^2 + n) * v * 4 B, over 3.35e12 B/s.  What
+// the scatter's simple design leaves on the table: every hop goes through
+// a staging slot, and a waiting block spins instead of working.
+#include "odc_bcast.cuh"
 #include "odc_ring.cuh"
 #include "quant.cuh"
-
-struct OdcQ8Args {
-  OdcArgs a;                        // in/out: codes; elems: chunks
-  const float* s_in[ODC_MAX_RANKS];   // gather: each shard's scales
-  float* s_out[ODC_MAX_RANKS];        // gather: (n, chunks) scales
-};
-
-// Copy the scales of chunks [lo, hi); `staged` as in odc_copy.
-__device__ __forceinline__ void q8_copy_scales(float* dst, const float* src,
-                                               long long n, bool staged) {
-  for (long long i = threadIdx.x; i < n; i += blockDim.x)
-    dst[i] = staged ? __ldcg(src + i) : src[i];
-}
-
-__global__ void __launch_bounds__(ODC_THREADS)
-odc_gather_q8_kernel(const __grid_constant__ OdcQ8Args g) {
-  const OdcArgs& a = g.a;
-  const int n = a.n;
-  const int r = blockIdx.y;
-  const int p = a.pos[r];
-  const int right = a.order[(p + 1) % n];
-  const int B = gridDim.x, b = blockIdx.x;
-  const unsigned long long epoch = *a.epoch;
-  long long lo, hi;
-  odc_slice(a, &lo, &hi);
-  const long long nc = a.elems, len = hi - lo;
-  const long long qoff = lo * Q8_CHUNK, qb = len * Q8_CHUNK;
-
-  const unsigned char* q = static_cast<const unsigned char*>(a.in[r]);
-  const float* s = g.s_in[r];
-  unsigned char* qout = static_cast<unsigned char*>(a.out[r]);
-  float* sout = g.s_out[r];
-  unsigned char* mine = static_cast<unsigned char*>(a.stage[r]);
-  unsigned char* theirs = static_cast<unsigned char*>(a.stage[right]);
-  // the scales slots follow the two values slots
-  float* mine_s = reinterpret_cast<float*>(mine + 2 * a.slot_bytes);
-  float* theirs_s = reinterpret_cast<float*>(theirs + 2 * a.slot_bytes);
-  unsigned* my_flags = a.flags + (size_t)r * 2 * B;
-  unsigned* their_flags = a.flags + (size_t)right * 2 * B;
-
-  odc_copy(qout + (long long)r * a.slot_bytes + qoff, q + qoff, qb, false);
-  q8_copy_scales(sout + (long long)r * nc + lo, s + lo, len, false);
-  for (int i = 0; i < n - 1; ++i) {
-    const int slot = i & 1, prev = (i - 1) & 1;
-    // the right neighbour must have released this slot (hop i - 2)
-    if (i >= 2) odc_wait(a.credits + (size_t)right * B + b,
-                         odc_tag(epoch, i - 2));
-    // push: my encoding at hop 0, then what arrived at the previous hop
-    const unsigned char* src_q =
-        i == 0 ? q : mine + (long long)prev * a.slot_bytes;
-    const float* src_s = i == 0 ? s : mine_s + (long long)prev * nc;
-    odc_copy(theirs + (long long)slot * a.slot_bytes + qoff, src_q + qoff,
-             qb, i > 0);
-    q8_copy_scales(theirs_s + (long long)slot * nc + lo, src_s + lo, len,
-                   i > 0);
-    odc_signal(their_flags + (size_t)slot * B + b, odc_tag(epoch, i));
-    // hop i - 1's slot is copied out and forwarded: release it
-    if (i >= 1) odc_signal(a.credits + (size_t)r * B + b,
-                           odc_tag(epoch, i - 1));
-    // receive hop i and file it at its origin's row
-    odc_wait(my_flags + (size_t)slot * B + b, odc_tag(epoch, i));
-    const int src_rank = a.order[((p - i - 1) % n + n) % n];
-    odc_copy(qout + (long long)src_rank * a.slot_bytes + qoff,
-             mine + (long long)slot * a.slot_bytes + qoff, qb, true);
-    q8_copy_scales(sout + (long long)src_rank * nc + lo,
-                   mine_s + (long long)slot * nc + lo, len, true);
-  }
-}
 
 // One hop's work on this block's chunks: acc = fma(code, scale, own) of
 // the arrived chunk (or own alone at the first hop), then either its encoding into the right
@@ -194,71 +130,54 @@ odc_scatter_q8_kernel(const __grid_constant__ OdcArgs a) {
                  mine_s + (long long)last * nc, nullptr, nullptr, out);
 }
 
-static int q8_capacity(const void* fn, int* blocks) {
+__global__ void __launch_bounds__(ODC_BCAST_THREADS, ODC_BCAST_MIN_BLOCKS)
+odc_gather_q8_kernel(const __grid_constant__ OdcBcastArgs a) {
+  odc_bcast<2>(a);
+}
+
+extern "C" int repro_odc_gather_q8_capacity(int* blocks) {
+  return odc_bcast_capacity((const void*)odc_gather_q8_kernel, blocks);
+}
+
+extern "C" int repro_odc_scatter_q8_capacity(int* blocks) {
   int dev, sms, per_sm;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
-                                                      ODC_THREADS, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, odc_scatter_q8_kernel, ODC_THREADS, 0);
   if (e != cudaSuccess) return (int)e;
   *blocks = per_sm * sms;
   return 0;
 }
 
-extern "C" int repro_odc_gather_q8_capacity(int* blocks) {
-  return q8_capacity((const void*)odc_gather_q8_kernel, blocks);
-}
-
-extern "C" int repro_odc_scatter_q8_capacity(int* blocks) {
-  return q8_capacity((const void*)odc_scatter_q8_kernel, blocks);
-}
-
-// Shared checks of both launches: a CUDA error code, or 0.
-static int q8_refuse(const void* fn, int n, long long chunks, int dtype,
-                     int blocks_per_rank) {
-  if (n < 1 || n > ODC_MAX_RANKS || blocks_per_rank < 1 || chunks < 1 ||
-      dtype != 0)
-    return (int)cudaErrorInvalidValue;
-  int cap;
-  int e = q8_capacity(fn, &cap);
-  if (e != 0) return e;
-  if ((long long)n * blocks_per_rank > cap)
-    return (int)cudaErrorCooperativeLaunchTooLarge;
-  return 0;
-}
-
-// Each returns a CUDA error code (0 on success); a grid whose blocks
-// cannot all be resident at once is refused without a launch.  `dtype`
-// is 0 (float32), the only type of the wire's decoded side.  The gather's
-// arguments after the epoch are the ranks' scales in and out.
+// The gather: q_in, q_out, s_in, s_out are host arrays of n device
+// pointers (rank r's codes and scales, and its (n, chunks, 256) codes and
+// (n, chunks) scales).  Any grid of at least one block.  Returns a CUDA
+// error code (0 on success; cudaErrorInvalidValue for arguments it does not
+// take).
 extern "C" int repro_odc_gather_q8(const void* const* q_in,
-                                   void* const* q_out, void* const* stage,
-                                   const int* order, int n, long long chunks,
-                                   int dtype, int blocks_per_rank,
-                                   unsigned* flags, unsigned* credits,
-                                   const unsigned long long* epoch,
+                                   void* const* q_out,
                                    const void* const* s_in,
-                                   void* const* s_out, void* stream) {
-  int e = q8_refuse((const void*)odc_gather_q8_kernel, n, chunks, dtype,
-                    blocks_per_rank);
-  if (e != 0) return e;
-  OdcQ8Args g = {};
-  g.a = odc_args(q_in, q_out, stage, order, n, chunks, Q8_CHUNK,
-                 blocks_per_rank, flags, credits, epoch);
-  for (int i = 0; i < n; ++i) {
-    g.s_in[i] = static_cast<const float*>(s_in[i]);
-    g.s_out[i] = static_cast<float*>(s_out[i]);
-  }
-  void* params[] = {&g};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)odc_gather_q8_kernel, dim3(blocks_per_rank, n),
-      dim3(ODC_THREADS), params, 0, static_cast<cudaStream_t>(stream));
-  cudaError_t last = cudaGetLastError();  // clears a launch error
-  return (int)(err != cudaSuccess ? err : last);
+                                   void* const* s_out, int n,
+                                   long long chunks, int blocks_per_rank,
+                                   void* stream) {
+  OdcBcastArgs a = {};
+  if (n < 1 || n > ODC_MAX_RANKS || blocks_per_rank < 1 || chunks < 1 ||
+      !odc_bcast_payload(&a, 0, q_in, q_out, n, chunks * Q8_CHUNK,
+                         Q8_CHUNK) ||
+      !odc_bcast_payload(&a, 1, s_in, s_out, n, chunks * 4, 4))
+    return (int)cudaErrorInvalidValue;
+  a.units = chunks;
+  odc_gather_q8_kernel<<<dim3(blocks_per_rank, n), ODC_BCAST_THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
 }
 
+// The scatter: returns a CUDA error code (0 on success); a grid whose
+// blocks cannot all be resident at once is refused without a launch.
+// `dtype` is 0 (float32), the only type of the wire's decoded side.
 extern "C" int repro_odc_scatter_q8(const void* const* in, void* const* out,
                                     void* const* stage, const int* order,
                                     int n, long long chunks, int dtype,
@@ -266,9 +185,14 @@ extern "C" int repro_odc_scatter_q8(const void* const* in, void* const* out,
                                     unsigned* credits,
                                     const unsigned long long* epoch,
                                     void* stream) {
-  int e = q8_refuse((const void*)odc_scatter_q8_kernel, n, chunks, dtype,
-                    blocks_per_rank);
+  if (n < 1 || n > ODC_MAX_RANKS || blocks_per_rank < 1 || chunks < 1 ||
+      dtype != 0)
+    return (int)cudaErrorInvalidValue;
+  int cap;
+  int e = repro_odc_scatter_q8_capacity(&cap);
   if (e != 0) return e;
+  if ((long long)n * blocks_per_rank > cap)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
   OdcArgs a = odc_args(in, out, stage, order, n, chunks, Q8_CHUNK,
                        blocks_per_rank, flags, credits, epoch);
   void* params[] = {&a};

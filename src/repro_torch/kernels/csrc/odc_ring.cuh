@@ -1,8 +1,9 @@
-// Shared pieces of the single-leaf ODC ring kernels (odc_gather.cu,
-// odc_q8.cu): the per-call argument block, the flag protocol and the copy
-// helpers.  The single-leaf scatter (odc_scatter.cu) pulls instead of
-// pushing and takes only the constants; the chained rings are cluster
-// kernels with a protocol of their own (odc_cluster.cuh).
+// The flag protocol of the one ODC ring kernel that still hops through
+// device memory, the q8 scatter-accumulate (odc_q8.cu,
+// odc_scatter_q8_kernel): its per-call argument block and its flags.  The
+// single-leaf gathers (odc_bcast.cuh) and scatter (odc_scatter.cu) have no
+// hops and take only the constants; the chained rings are cluster kernels
+// with a protocol of their own (odc_cluster.cuh).
 //
 // Protocol (one-sided push, as in the TPU kernels): every rank owns two
 // staging slots.  A hop writes its payload into the right neighbour's slot,
@@ -37,8 +38,8 @@
 #define ODC_TIMEOUT_NS 30000000000ull
 
 struct OdcArgs {
-  const void* in[ODC_MAX_RANKS];   // gather: shard; scatter: contribution
-  void* out[ODC_MAX_RANKS];        // gather: (n, c); scatter: (c)
+  const void* in[ODC_MAX_RANKS];   // rank r's contributions
+  void* out[ODC_MAX_RANKS];        // rank r's sums
   void* stage[ODC_MAX_RANKS];      // two slots of slot_bytes each
   int order[ODC_MAX_RANKS];        // ring position -> rank
   int pos[ODC_MAX_RANKS];          // rank -> ring position
@@ -95,29 +96,6 @@ __device__ __forceinline__ void odc_signal(unsigned* p, unsigned v) {
 __device__ __forceinline__ unsigned odc_tag(unsigned long long epoch,
                                             int hop) {
   return (unsigned)(epoch * ODC_TAG_STRIDE) + (unsigned)hop + 1u;
-}
-
-__device__ __forceinline__ bool odc_aligned16(const void* a, const void* b,
-                                              const void* c) {
-  return ((((uintptr_t)a) | ((uintptr_t)b) | ((uintptr_t)c)) & 15u) == 0;
-}
-
-// Copy nbytes; `staged` marks a source in a staging slot written by
-// another block, read through L2 only.
-__device__ __forceinline__ void odc_copy(unsigned char* dst,
-                                         const unsigned char* src,
-                                         long long nbytes, bool staged) {
-  long long done = 0;
-  if (odc_aligned16(dst, src, dst)) {
-    const long long nv = nbytes >> 4;
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (long long i = threadIdx.x; i < nv; i += blockDim.x)
-      __stcg(d + i, staged ? __ldcg(s + i) : s[i]);
-    done = nv << 4;
-  }
-  for (long long i = done + threadIdx.x; i < nbytes; i += blockDim.x)
-    dst[i] = staged ? __ldcg(src + i) : src[i];
 }
 
 // The element range [lo, hi) of c that this block owns.

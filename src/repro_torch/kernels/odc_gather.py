@@ -1,5 +1,5 @@
-"""ODC gather: the hand-written CUDA ring kernel and its plain PyTorch
-version.
+"""ODC gather: the hand-written CUDA kernels and their plain PyTorch
+versions.
 
 Counterpart of ``repro.kernels.odc_gather.odc_gather_pallas`` as the JAX
 package calls it (``repro.kernels.ops.odc_gather``): rank r's (c, ...)
@@ -12,6 +12,11 @@ the natural ring), as ``repro_torch.core.odc.ring_order`` gives it.
 ``odc_gather`` launches ``csrc/odc_gather.cu`` once for all ranks when
 the shards lie on a CUDA device, and runs the plain ring
 (``odc_gather_plain``) when they lie on the CPU; there is no other route.
+Every rank lies on one card, so the kernel has no ring: block (b, s)
+reads slice b of shard s once and stores it to row s of every output
+(``csrc/odc_bcast.cuh``), so the result is the ring's whatever its order,
+and the kernel moves bytes, NaN bit patterns included.  It allocates
+nothing but the outputs, takes any grid, and no block waits for another.
 ``launches`` counts kernel launches.
 
 ``odc_gather_layers`` is the counterpart of
@@ -37,7 +42,6 @@ from repro_torch.kernels import _build, _ring
 
 launches = 0
 layers_launches = 0
-_STATE = _ring.RingState()
 
 __all__ = ["odc_gather", "odc_gather_plain", "launches",
            "odc_gather_layers", "odc_gather_layers_plain", "layers_launches"]
@@ -48,27 +52,33 @@ def odc_gather(shards: Sequence[torch.Tensor],
                blocks_per_rank: Optional[int] = None) -> List[torch.Tensor]:
     """Every rank's full tensor from every rank's shard: the CUDA kernel
     for CUDA tensors, the plain ring for CPU tensors.  ``blocks_per_rank``
-    overrides the kernel's block count (a launch whose blocks cannot all
-    be resident raises)."""
+    overrides the kernel's grid (default ``_ring.pull_blocks_per_rank``);
+    any grid gives the same bits."""
     global launches
     if shards[0].device.type == "cpu":
         return odc_gather_plain(shards, order)
     device = _ring.check(shards, "odc_gather")
     n = len(shards)
     x = shards[0]
+    nbytes = x.numel() * x.element_size()
+    _ring.order_table(n, order)  # the kernel needs none; a bad one raises
     lib = _build.library("odc_gather")
-    with torch.cuda.device(device):
-        cap = _ring.capacity(lib, "repro_odc_gather_capacity")
     if blocks_per_rank is None:
-        blocks_per_rank = _ring.blocks_per_rank(
-            x.numel() * x.element_size(), n, cap)
+        with torch.cuda.device(device):
+            cap = _ring.capacity(lib, "repro_odc_gather_capacity")
+        blocks_per_rank = _ring.pull_blocks_per_rank(nbytes, n, cap,
+                                                     _ring.BCAST_UNROLL)
+    _ring.check_grid("odc_gather", blocks_per_rank)
     outs = [torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
                         dtype=x.dtype, device=device) for _ in range(n)]
-    stages = [torch.empty(2 * x.numel(), dtype=x.dtype, device=device)
-              for _ in range(n)]
-    _ring.launch(lib.repro_odc_gather, "odc_gather", shards, outs, stages,
-                 order, x.numel(), x.element_size(), blocks_per_rank, cap,
-                 _STATE, device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = lib.repro_odc_gather(_ring.pointers(shards),
+                                   _ring.pointers(outs), n, nbytes,
+                                   blocks_per_rank, stream)
+    if err != 0:
+        raise RuntimeError(f"odc_gather kernel failed to launch: CUDA error "
+                           f"{err}")
     launches += 1
     return outs
 

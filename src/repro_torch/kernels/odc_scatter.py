@@ -45,14 +45,12 @@ from repro_torch.kernels import _build, _ring
 launches = 0
 layers_launches = 0
 # threads of a block and 16-byte vectors of a contributor each thread
-# holds at once (ODC_PULL_THREADS, ODC_PULL_UNROLL in csrc/odc_scatter.cu)
-PULL_THREADS = 256
+# holds at once (ODC_PULL_THREADS, ODC_PULL_UNROLL in csrc/odc_scatter.cu);
+# the default grid's waves of resident blocks (the plan of every pull
+# kernel: _ring.pull_blocks_per_rank)
+PULL_THREADS = _ring.PULL_THREADS
 PULL_UNROLL = 2
-# The default grid holds two waves of resident blocks: blocks are
-# scheduled owner by owner, so the first wave reads half the owners'
-# chunks, and the DRAM sees half as many streams at once (measured a
-# little faster than one wave on an H100)
-PULL_WAVES = 2
+PULL_WAVES = _ring.PULL_WAVES
 
 __all__ = ["odc_scatter_accumulate", "odc_scatter_accumulate_plain",
            "odc_scatter_accumulate_owner_plain", "launches",
@@ -86,9 +84,7 @@ def pull_blocks_per_rank(c: int, elem_bytes: int, n: int, cap: int) -> int:
     for every thread to hold PULL_UNROLL vectors of the chunk, at most
     PULL_WAVES times as many as the card holds at once over all n owners
     (``cap``); each block strides over its share."""
-    vectors = -(-c * elem_bytes // 16)
-    want = max(1, -(-vectors // (PULL_THREADS * PULL_UNROLL)))
-    return max(1, min(want, PULL_WAVES * cap // n))
+    return _ring.pull_blocks_per_rank(c * elem_bytes, n, cap, PULL_UNROLL)
 
 
 def odc_scatter_accumulate(ys: Sequence[torch.Tensor],
@@ -115,9 +111,7 @@ def odc_scatter_accumulate(ys: Sequence[torch.Tensor],
         with torch.cuda.device(device):
             cap = _ring.capacity(lib, "repro_odc_scatter_capacity", code)
         blocks_per_rank = pull_blocks_per_rank(c, y.element_size(), n, cap)
-    if not 1 <= blocks_per_rank < 2 ** 31:
-        raise ValueError(f"odc_scatter_accumulate: blocks_per_rank "
-                         f"{blocks_per_rank} is not in [1, 2**31)")
+    _ring.check_grid("odc_scatter_accumulate", blocks_per_rank)
     outs = [torch.empty((y.shape[0] // n,) + tuple(y.shape[1:]),
                         dtype=y.dtype, device=device) for _ in range(n)]
     stream = torch.cuda.current_stream(device).cuda_stream

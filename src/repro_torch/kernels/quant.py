@@ -16,9 +16,10 @@ value.
   ``csrc/quant.cu``.
 * ``odc_gather_q8(shards, order)``: rank r's (c, ...) shard -> its
   (n*c, ...) full tensor, every other shard quantized ONCE at its origin
-  and relayed verbatim (``gather_codes``: ``repro_odc_gather_q8`` of
-  ``csrc/odc_q8.cu``), decoded where it lands, the rank's own shard
-  written back exactly.
+  and moved verbatim (``gather_codes``: ``repro_odc_gather_q8`` of
+  ``csrc/odc_q8.cu``, the read-once broadcast of ``csrc/odc_bcast.cuh``
+  over the codes and the scales, no ring), decoded where it lands, the
+  rank's own shard written back exactly.
 * ``odc_scatter_accumulate_q8(ys, order)``: rank r's (n*c, ...)
   contribution -> its (c, ...) chunk summed over the ranks, the partial
   sum requantized at every hop (``repro_odc_scatter_q8``).
@@ -50,7 +51,6 @@ quantize_launches = 0
 dequantize_launches = 0
 gather_launches = 0
 scatter_launches = 0
-_GATHER_STATE = _ring.RingState()
 _SCATTER_STATE = _ring.RingState()
 
 __all__ = ["quantize_int8", "dequantize_int8", "gather_codes",
@@ -159,12 +159,16 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, shape,
 def gather_codes(qs: Sequence[torch.Tensor], ss: Sequence[torch.Tensor],
                  order: Optional[Sequence[int]] = None, *,
                  blocks_per_rank: Optional[int] = None):
-    """The compressed ring itself (``odc_gather_q8_pallas``): every rank's
-    ``(n_chunks, 256)`` codes and ``(n_chunks, 1)`` scales -> per rank
-    ``(n, n_chunks, 256)`` codes and ``(n, n_chunks, 1)`` scales, row s
-    holding rank s's encoding as it left rank s.  One launch of the CUDA
-    kernel for CUDA tensors; for CPU tensors the plain ring moves the
-    codes and scales as it moves any shard."""
+    """The compressed gather itself (``odc_gather_q8_pallas``): every
+    rank's ``(n_chunks, 256)`` codes and ``(n_chunks, 1)`` scales -> per
+    rank ``(n, n_chunks, 256)`` codes and ``(n, n_chunks, 1)`` scales, row
+    s holding rank s's encoding as it left rank s.  One launch of the CUDA
+    kernel for CUDA tensors: block (b, s) reads whole chunks of rank s's
+    encoding once, codes and scales together, and stores them to row s of
+    every output; it allocates nothing but the outputs and takes any grid
+    (``blocks_per_rank``, default ``_ring.pull_blocks_per_rank`` of the
+    codes).  For CPU tensors the plain ring moves the codes and scales as
+    it moves any shard."""
     global gather_launches
     n = len(qs)
     nc = qs[0].shape[0]
@@ -182,23 +186,25 @@ def gather_codes(qs: Sequence[torch.Tensor], ss: Sequence[torch.Tensor],
             raise ValueError(f"gather_codes: every rank needs contiguous "
                              f"({nc}, {INT8_CHUNK}) int8 codes and {nc} "
                              f"float32 scales on {device}")
+    _ring.order_table(n, order)  # the kernel needs none; a bad one raises
     lib = _build.library("odc_q8")
-    with torch.cuda.device(device):
-        cap = _ring.capacity(lib, "repro_odc_gather_q8_capacity")
     if blocks_per_rank is None:
-        blocks_per_rank = _ring.blocks_per_rank(nc * INT8_CHUNK, n, cap)
+        with torch.cuda.device(device):
+            cap = _ring.capacity(lib, "repro_odc_gather_q8_capacity")
+        blocks_per_rank = _ring.pull_blocks_per_rank(
+            nc * INT8_CHUNK, n, cap, _ring.BCAST_UNROLL)
+    _ring.check_grid("gather_codes", blocks_per_rank)
     q_out = [torch.empty((n, nc, INT8_CHUNK), dtype=torch.int8,
                          device=device) for _ in range(n)]
     s_out = [torch.empty((n, nc, 1), dtype=torch.float32, device=device)
              for _ in range(n)]
     if nc:
-        stages = [torch.empty(2 * nc * (INT8_CHUNK + 4), dtype=torch.uint8,
-                              device=device) for _ in range(n)]
-        _ring.launch(lib.repro_odc_gather_q8, "odc_gather_q8",
-                     [_aligned(q) for q in qs], q_out, stages, order, nc, 0,
-                     blocks_per_rank, cap, _GATHER_STATE, device,
-                     extra=(_ring.pointers([_aligned(s) for s in ss]),
-                            _ring.pointers(s_out)))
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            _check(lib.repro_odc_gather_q8(
+                _ring.pointers(qs), _ring.pointers(q_out),
+                _ring.pointers(ss), _ring.pointers(s_out), n, nc,
+                blocks_per_rank, stream), "odc_gather_q8")
         gather_launches += 1
     return q_out, s_out
 
@@ -209,8 +215,8 @@ def odc_gather_q8(shards: Sequence[torch.Tensor],
                   ) -> List[torch.Tensor]:
     """Every rank's (n*c, ...) full tensor from every rank's (c, ...)
     shard over the compressed wire: the kernels for CUDA tensors (n
-    encodes, one ring launch, n decodes), ``odc.ring_gather_q8`` for CPU
-    tensors.  ``blocks_per_rank`` overrides the ring's block count."""
+    encodes, one gather launch, n decodes), ``odc.ring_gather_q8`` for CPU
+    tensors.  ``blocks_per_rank`` overrides the gather's grid."""
     if shards[0].device.type == "cpu":
         return odc.ring_gather_q8(shards, order)
     _ring.check(shards, "odc_gather_q8")

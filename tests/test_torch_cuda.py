@@ -4,8 +4,10 @@ two paths at the decode threshold, the decode path against its split
 algorithm and bitwise the same for a row in any batch, and the state sweep
 bitwise the monolithic kernel over chunks of 64, 128 and 256 keys; the
 ODC ring kernels and their chained-layer versions against the plain rings
-and their refusal of a grid that cannot be co-resident (the pull scatter:
-any grid, and no allocation but its outputs); the state sweep
+(the broadcast gathers and the pull scatter: any grid, sources off 16
+bytes, NaN bit patterns, and no allocation but their outputs; the chained
+rings and the q8 scatter: their refusal of a grid that cannot be
+co-resident); the state sweep
 kernel against its plain version, and the cp ring over it against the
 monolithic kernel (bitwise) and against its plain route (gradient); a
 reduced serve run and reduced train steps (ODC x minibatch, collective x
@@ -284,24 +286,82 @@ def test_ring_kernels_match_plain_rings(cuda, dtype, n, ordered):
         assert all(torch.equal(a, b) for a, b in zip(out, ref))
 
 
-def test_ring_refuses_a_grid_that_cannot_be_resident(cuda):
-    """The single-leaf gather's blocks wait on each other, so a grid that
-    cannot all be resident is refused before it runs (the pull scatter
-    has no such rule: ``test_scatter_takes_any_grid``)."""
+def _nan_bits(n, c, cuda):
+    """n ranks' (c,) int32 leaves of NaN and infinity bit patterns and
+    counts, as float32 views: the cp path's segment ids travel so."""
+    pats = torch.tensor([0x7FC00001, 0x7F800001, -1, 0x7F800000, 3,
+                         -0x00400001], dtype=torch.int32)
+    return [(pats.repeat(c // len(pats) + 1)[:c] + r).to(cuda)
+            .view(torch.float32) for r in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_takes_any_grid(cuda, dtype):
+    """No block of the broadcast gather waits for another, so any grid
+    runs, a million blocks a rank included, and gives the same bits; so
+    does a source that is a view at storage offset 1 (off 16 bytes) and a
+    payload of NaN bit patterns.  A grid outside [1, 2**31), a bad ring
+    order, a dtype or a layout the kernel does not take are refused before
+    launch."""
     from repro_torch.kernels import odc_gather as G
 
-    xs = [torch.ones(64, device=cuda) for _ in range(4)]
+    n, order = 3, [1, 2, 0]
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    xs = [torch.randn(5003, generator=gen, device=cuda).to(dtype)
+          for _ in range(n)]
+    ref = G.odc_gather_plain(xs, order)
+    for grid in (1, 7, None, 1 << 20):
+        out = G.odc_gather(xs, order, blocks_per_rank=grid)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, ref)), grid
+    views = [torch.randn(5004, generator=gen, device=cuda).to(dtype)[1:]
+             for _ in range(n)]
+    assert all(v.data_ptr() % 16 and v.is_contiguous() for v in views)
+    for grid in (1, 7, None):
+        out = G.odc_gather(views, blocks_per_rank=grid)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in
+                   zip(out, G.odc_gather_plain(views))), grid
+    bits = _nan_bits(n, 1001, cuda)
+    out = G.odc_gather(bits, order)
+    torch.cuda.synchronize()
+    want = torch.cat([b.view(torch.int32) for b in bits])
+    assert all(torch.equal(o.view(torch.int32), want) for o in out)
     before = G.launches
-    with pytest.raises(RuntimeError, match="resident"):
-        G.odc_gather(xs, blocks_per_rank=1 << 20)
-    assert G.launches == before
+    with pytest.raises(ValueError, match="blocks_per_rank"):
+        G.odc_gather(xs, blocks_per_rank=0)
+    with pytest.raises(ValueError, match="permutation"):
+        G.odc_gather(xs, [0, 0, 1])
     with pytest.raises(TypeError):
         G.odc_gather([x.half() for x in xs])
     with pytest.raises(ValueError, match="contiguous"):
         G.odc_gather([torch.ones(8, 2, device=cuda).t() for _ in range(2)])
-    out = G.odc_gather(xs)  # the card is usable after a refusal
-    torch.cuda.synchronize()
-    assert all(torch.equal(o, torch.ones(256, device=cuda)) for o in out)
+    assert G.launches == before
+
+
+def test_gathers_allocate_only_their_outputs(cuda):
+    """The broadcast gathers (f32 and q8 codes) allocate their outputs and
+    nothing else: no staging in device memory, no flag state."""
+    from repro_torch.kernels import odc_gather as G
+    from repro_torch.kernels import quant as Q
+
+    n, c, nc = 4, 1 << 18, 1 << 10
+    xs = [torch.randn(c, device=cuda) for _ in range(n)]
+    qs = [torch.randint(-127, 128, (nc, 256), dtype=torch.int8,
+                        device=cuda) for _ in range(n)]
+    ss = [torch.rand(nc, 1, device=cuda) for _ in range(n)]
+    for fn, args in ((G.odc_gather, (xs,)), (Q.gather_codes, (qs, ss))):
+        fn(*args)  # built and loaded before counting
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        out = fn(*args)
+        torch.cuda.synchronize()
+        outs = out if fn is G.odc_gather else out[0] + out[1]
+        nbytes = sum(o.numel() * o.element_size() for o in outs)
+        assert torch.cuda.memory_allocated(cuda) - before == nbytes
+        assert torch.cuda.max_memory_allocated(cuda) - before == nbytes
+        del out, outs
 
 
 def test_scatter_allocates_only_its_outputs(cuda):
@@ -732,24 +792,71 @@ def test_q8_ring_kernels_match_plain_rings(cuda, n, ordered):
         assert all(torch.equal(a, b) for a, b in zip(out, ref))
 
 
-def test_q8_rings_refuse_a_grid_that_cannot_be_resident(cuda):
+def test_q8_gather_takes_any_grid(cuda):
+    """The q8 gather is the broadcast over codes and scales: any grid
+    gives the plain ring's bits, so do sources off 16 bytes (codes at
+    storage offset 1, scales at offset 1), and a grid outside [1, 2**31)
+    is refused before launch."""
+    from repro_torch.core import odc
     from repro_torch.kernels import quant as Q
 
-    xs = [torch.ones(512, device=cuda) for _ in range(4)]
+    n, nc, order = 3, 37, [2, 0, 1]
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    enc = [Q.quantize_int8(torch.randn(nc * 256, generator=gen,
+                                       device=cuda)) for _ in range(n)]
+    qs, ss = [q for q, _ in enc], [s for _, s in enc]
+    ref = (odc.ring_gather(qs, order), odc.ring_gather(ss, order))
+    for grid in (1, 7, None, 1 << 20):
+        q_out, s_out = Q.gather_codes(qs, ss, order, blocks_per_rank=grid)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a.view(-1, 256), b)
+                   for a, b in zip(q_out, ref[0])), grid
+        assert all(torch.equal(a.view(-1, 1), b)
+                   for a, b in zip(s_out, ref[1])), grid
+    qv = [torch.cat([q.new_zeros(1), q.view(-1)])[1:].view(nc, 256)
+          for q in qs]
+    sv = [torch.cat([s.new_zeros(1), s.view(-1)])[1:].view(nc, 1)
+          for s in ss]
+    assert all(t.data_ptr() % 16 for t in qv + sv)
+    for grid in (1, 7, None):
+        q_out, s_out = Q.gather_codes(qv, sv, blocks_per_rank=grid)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a.view(-1, 256), b)
+                   for a, b in zip(q_out, odc.ring_gather(qs))), grid
+        assert all(torch.equal(a.view(-1, 1), b)
+                   for a, b in zip(s_out, odc.ring_gather(ss))), grid
+    xs = [torch.randn(1000, 3, generator=gen, device=cuda) for _ in range(n)]
+    for grid in (1, 7, 1 << 20):
+        out = Q.odc_gather_q8(xs, order, blocks_per_rank=grid)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in
+                   zip(out, odc.ring_gather_q8(xs, order))), grid
+    before = Q.gather_launches
+    with pytest.raises(ValueError, match="blocks_per_rank"):
+        Q.gather_codes(qs, ss, blocks_per_rank=0)
+    assert Q.gather_launches == before
+
+
+def test_q8_scatter_refuses_a_grid_that_cannot_be_resident(cuda):
+    """The q8 scatter is still a ring whose blocks wait on each other, so
+    a grid that cannot all be resident is refused before it runs, and the
+    card is usable after it."""
+    from repro_torch.core import odc
+    from repro_torch.kernels import quant as Q
+
     ys = [torch.ones(2048, device=cuda) for _ in range(4)]
-    for fn, args, attr in ((Q.odc_gather_q8, xs, "gather_launches"),
-                           (Q.odc_scatter_accumulate_q8, ys,
-                            "scatter_launches")):
-        before = getattr(Q, attr)
-        with pytest.raises(RuntimeError, match="resident"):
-            fn(args, blocks_per_rank=1 << 20)
-        assert getattr(Q, attr) == before
+    before = Q.scatter_launches
+    with pytest.raises(RuntimeError, match="resident"):
+        Q.odc_scatter_accumulate_q8(ys, blocks_per_rank=1 << 20)
+    assert Q.scatter_launches == before
     with pytest.raises(ValueError, match="int8"):
         Q.dequantize_int8(torch.ones(2, 256, device=cuda), torch.ones(
             2, 1, device=cuda), (512,))
-    out = Q.odc_gather_q8(xs)  # the card is usable after a refusal
+    out = Q.odc_scatter_accumulate_q8(ys)
     torch.cuda.synchronize()
-    assert all(torch.equal(o, torch.ones(2048, device=cuda)) for o in out)
+    assert Q.scatter_launches == before + 1
+    assert all(torch.equal(a, b) for a, b in
+               zip(out, odc.ring_scatter_accumulate_q8(ys)))
 
 
 @pytest.mark.parametrize("comm", ["hier", "pipe", "pipe-int8"])
