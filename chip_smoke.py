@@ -15,9 +15,11 @@ and pipe-int8 as 2 nodes or stages x 1), trains pipe-int8 on a 2 x 2
 layout at full width and reduced depth (22 layers), profiles a train
 step of the first, the third and the cp run, saves and resumes a reduced
 overlap run, and times each kernel against its bound and its library
-yardstick.  The ssm family: the Mamba2 SSD scan kernel against its plain
-version (forward at mamba2's serve and train shapes and three more, the
-gradient route at the train shape), mamba2-2.7b served at full width and
+yardstick.  The ssm family: the Mamba2 SSD scan (a chunk-parallel
+sequence of four kernels, its launch plan and workspace held to the C
+side's) against its plain version (forward at mamba2's and zamba2's
+serve and train shapes and three more, the gradient route at the train
+shape), mamba2-2.7b served at full width and
 depth (its prefill logits against the plain scan route), and trained at
 full width and 40 of its 64 layers with two ranks as collective x layer
 and ODC x minibatch (step 0 against the plain scan route, one profiled
@@ -1308,16 +1310,74 @@ def _ssd_inputs(b, s, h, p, g, n, pad, dtype, seed):
     return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype)
 
 
+def _peak_requested(fn):
+    """(result, peak bytes requested of the caching allocator above the
+    start in one call of fn): the sizes the callers asked for, before the
+    allocator rounds them up to its blocks."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_stats()["requested_bytes.all.peak"] - before
+
+
 def _rel_err(out, ref):
     """(max |diff|, max |diff| / (1 + |ref|)) in f32."""
     d = (out.float() - ref.float()).abs()
     return float(d.max()), float((d / (1 + ref.float().abs())).max())
 
 
+def _ssd_plan_of_c(b, s, h, p, g, n, Q) -> list:
+    """``repro_ssd_scan_plan``'s launches and workspace bytes, flat."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    out = (ctypes.c_longlong * 17)()
+    err = _build.library("ssd_scan").repro_ssd_scan_plan(b, s, h, p, g, n,
+                                                         Q, out)
+    return list(out) if err == 0 else [f"refused: CUDA error {err}"]
+
+
+def _ssd_plan_flat(plan) -> list:
+    from repro_torch.kernels import ssd_scan as K
+
+    return [v for k in K.KERNELS for v in (*plan[k]["grid"],
+                                           plan[k]["threads"],
+                                           plan[k]["smem_bytes"])] \
+        + [plan["workspace_bytes"]]
+
+
 def phase_ssd_kernel():
     from repro_torch.kernels import ssd_scan as K
 
     bad = []
+    # the host's plan (grids, shared memory, workspace: the wrapper
+    # allocates what it says) against the C side's
+    for name, (b, s, h, p, g, n, Q, _) in SSD_CASES.items():
+        plan = K.launch_plan(b, s, h, p, g, n, Q)
+        if _ssd_plan_flat(plan) != _ssd_plan_of_c(b, s, h, p, g, n, Q):
+            bad.append(f"{name} plan")
+        log(f"ssd_scan plan {name}: " + ", ".join(
+            f"{k} grid {plan[k]['grid']}" for k in K.KERNELS)
+            + f"; workspace {plan['workspace_bytes']} bytes, C side "
+            f"{'agrees' if f'{name} plan' not in bad else 'DIFFERS'}")
+    # the largest chunk both sides take, and one more that both refuse
+    edge = (1, K.MAX_Q, 2, 8, 1, 8, K.MAX_Q)
+    past = (1, K.MAX_Q + 1, 2, 8, 1, 8, K.MAX_Q + 1)
+    try:
+        K.launch_plan(*past)
+        host_refuses = False
+    except ValueError:
+        host_refuses = True
+    c_refuses = _ssd_plan_of_c(*past)[0] == "refused: CUDA error 1"
+    edge_ok = _ssd_plan_flat(K.launch_plan(*edge)) == _ssd_plan_of_c(*edge)
+    log(f"ssd_scan largest chunk {K.MAX_Q}: plans agree {edge_ok}; one "
+        f"more refused by the host {host_refuses}, by the C side "
+        f"{c_refuses}")
+    if not (edge_ok and host_refuses and c_refuses):
+        bad.append("largest chunk")
     for dtype in (torch.float32, torch.bfloat16):
         for i, (name, (b, s, h, p, g, n, Q, pad)) in enumerate(
                 SSD_CASES.items()):
@@ -2263,6 +2323,20 @@ def _overlap_timeline(path) -> dict:
             "busy_ms": busy / 1e3}
 
 
+def _kernel_ms(path, frags) -> dict:
+    """Device ms of the kernels of an exported trace whose names hold each
+    fragment of ``frags`` (name -> fragment)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = dict.fromkeys(frags, 0.0)
+    for e in events:
+        if e.get("cat") == "kernel":
+            for k, frag in frags.items():
+                if frag in e["name"]:
+                    out[k] += e["dur"] / 1e3
+    return out
+
+
 def _profile_train_step(comm="odc", schedule="minibatch", cp=1,
                         cfg=None) -> dict:
     """Where one train step's time goes: host wall time of a step without
@@ -2274,7 +2348,8 @@ def _profile_train_step(comm="odc", schedule="minibatch", cp=1,
     the union of the kernels' intervals.  ``cp`` > 1: the cp run's
     configuration (CP_TRAIN, lb_token) instead of TRAIN's.  ``cfg``: the
     model in place of ARCH's (the SSD scan's backward, PyTorch code, is
-    then counted apart by its label too)."""
+    then counted apart by its label too, and the scan's class split by
+    the four kernels of its sequence)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.balance.cost import CostModel
@@ -2326,7 +2401,7 @@ def _profile_train_step(comm="odc", schedule="minibatch", cp=1,
     dev, n_kernels = _device_ms(prof, name, 1, {
         "flash_attention": ("attn_fwd", "attn_decode"),
         "flash_attention_state": ("attn_state",),
-        "ssd_scan": ("ssd_scan_kernel",),
+        "ssd_scan": ("ssd_",),  # the four kernels of a scan call
         "odc_chained": CHAINED,
         "odc_gather": ("odc_gather_kernel",),
         "odc_scatter": ("odc_scatter_pull_kernel",),
@@ -2337,25 +2412,33 @@ def _profile_train_step(comm="odc", schedule="minibatch", cp=1,
     result = {"host_ms": wall, "host_ms_profiled": wall_prof,
               "device_ms": dev, "kernels": n_kernels}
     extra = ""
+    if dev["ssd_scan"] > 0:
+        from repro_torch.kernels.ssd_scan import KERNELS as SSD_KERNELS
+
+        split = _kernel_ms(os.path.join(ROOT, "build", name),
+                           {k: f"ssd_{k}_kernel" for k in SSD_KERNELS})
+        result["ssd_scan_by_kernel"] = split
+        extra = ("; ssd_scan by kernel " + ", ".join(
+            f"{k} {v:.1f}" for k, v in split.items()))
     if tr.schedule == "overlap":
         tl = _overlap_timeline(os.path.join(ROOT, "build", name))
         busy = tl["busy_ms"]
         result["overlap"] = tl
         share = (tl["chained_under_compute_ms"] / tl["chained_ms"]
                  if tl["chained_ms"] else 0.0)
-        extra = (f"; chained rings {tl['chained_ms']:.2f} ms in "
-                 f"{tl['chained_launches']} launches "
-                 f"({', '.join(f'{k} {v:.2f}' for k, v in tl['chained_by_kernel'].items())}), "
-                 f"{tl['chained_under_compute_ms']:.2f} ms of it under "
-                 f"compute kernels ({share:.1%}); copies "
-                 + ", ".join(f"{k} {v:.2f} ms"
-                             for k, v in tl["copies_ms"].items())
-                 + f" (runtime calls, kernels in the trace: "
-                 + ", ".join(f"{k} {a}, {b}" for k, (a, b)
-                             in tl["calls_and_kernels"].items())
-                 + f"; {tl['launches_moved']} calls that their own "
-                 f"timestamps would have placed under another label or "
-                 f"none); busy is the union of kernel intervals")
+        extra += (f"; chained rings {tl['chained_ms']:.2f} ms in "
+                  f"{tl['chained_launches']} launches "
+                  f"({', '.join(f'{k} {v:.2f}' for k, v in tl['chained_by_kernel'].items())}), "
+                  f"{tl['chained_under_compute_ms']:.2f} ms of it under "
+                  f"compute kernels ({share:.1%}); copies "
+                  + ", ".join(f"{k} {v:.2f} ms"
+                              for k, v in tl["copies_ms"].items())
+                  + f" (runtime calls, kernels in the trace: "
+                  + ", ".join(f"{k} {a}, {b}" for k, (a, b)
+                              in tl["calls_and_kernels"].items())
+                  + f"; {tl['launches_moved']} calls that their own "
+                  f"timestamps would have placed under another label or "
+                  f"none); busy is the union of kernel intervals")
     result["busy_ms"] = busy
     result["idle"] = max(0.0, 1 - busy / wall)
     log(f"train step profile ({tag}, step 0's batch, {tokens:.0f} tokens, "
@@ -3233,7 +3316,9 @@ def _ssd_times(name) -> dict:
     (b, group, chunk), since every head of a group shares them; per
     (b, h, chunk) their products with x, 2p FLOP each, and 4Qpn for the
     off-diagonal term and the state.  No single PyTorch call computes the
-    scan: no library time."""
+    scan: no library time.  Also the call's workspace: the peak bytes a
+    call requests of the allocator less y and the state, measured in one
+    call, which must be the bytes ``launch_plan`` gives."""
     from repro_torch.kernels import ssd_scan as K
 
     b, s, h, p, g, n, Q, pad = SSD_CASES[name]
@@ -3245,6 +3330,10 @@ def _ssd_times(name) -> dict:
     ms = _time_ms(lambda: K.ssd_scan(*ins, Q))
     plain_ms = _time_ms(lambda: K.ssd_scan_plain(*ins, Q), iters=5,
                         warmup=1)
+    (y, st), grew = _peak_requested(lambda: K.ssd_scan(*ins, Q))
+    ws = grew - sum(t.numel() * t.element_size() for t in (y, st))
+    ws_plan = K.launch_plan(b, s, h, p, g, n, Q)["workspace_bytes"]
+    del y, st
     chunks = b * (s // Q)
     tri = Q * (Q + 1) // 2
     ops = chunks * (g * tri * 2 * n + h * (tri * 2 * p + 4 * Q * p * n))
@@ -3263,12 +3352,17 @@ def _ssd_times(name) -> dict:
         f"full (Q, Q) blocks {full_ops / 1e9:.2f} GFLOP, "
         f"{full_ops / PEAK_FLOPS[torch.float32] * 1e3:.4f} ms; bytes "
         f"{bytes_ms:.4f} ms), plain {plain_ms:.4f} ms, library none, "
-        f"kernel/bound {ms / bound_ms:.1f}x")
+        f"kernel/bound {ms / bound_ms:.1f}x; workspace {ws} bytes (a "
+        f"call's peak request less y and the state; the plan's {ws_plan})")
+    if ws != ws_plan:
+        fail(f"ssd_scan {name}: a call allocated {ws} bytes beyond y and "
+             f"the state, its launch plan {ws_plan}")
     del ins
     torch.cuda.empty_cache()
     return {"shape": shape_s, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None,
+            "workspace_bytes": ws}
 
 
 def _gm_times(name, dtype, err) -> dict:

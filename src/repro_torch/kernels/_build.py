@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _PI = ctypes.POINTER(ctypes.c_int)
+_PL = ctypes.POINTER(ctypes.c_longlong)
 # the q8 scatter's ring: inputs, outputs, stages, order, n, chunks, dtype,
 # blocks per rank, flags, credits, epoch, the stream
 _RING = [_P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P]
@@ -69,8 +70,11 @@ SIGNATURES = {
                "repro_odc_gather_q8_capacity": [_PI],
                "repro_odc_scatter_q8": _RING,
                "repro_odc_scatter_q8_capacity": [_PI]},
-    # x, dt, A, B, C, y, state; b, s, h, p, g, n, Q, dtype; the stream
-    "ssd_scan": {"repro_ssd_scan": [_P] * 7 + [_I] * 8 + [_P]},
+    # x, dt, A, B, C, y, state, workspace, its bytes; b, s, h, p, g, n, Q,
+    # dtype; the stream
+    "ssd_scan": {"repro_ssd_scan": [_P] * 8 + [_L] + [_I] * 8 + [_P],
+                 # b, s, h, p, g, n, Q -> the four launches, workspace bytes
+                 "repro_ssd_scan_plan": [_I] * 7 + [_PL]},
     # the ranks' x, shard and output pointer tables; n, m, k, f (the
     # CUDA-core route: dtype); the stream
     "gather_matmul": {"repro_gather_matmul_tc": [_P] * 3 + [_I] * 4 + [_P],

@@ -13,7 +13,8 @@ monolithic kernel (bitwise) and against its plain route (gradient); a
 reduced serve run and reduced train steps (ODC x minibatch, collective x
 layer, ODC under the overlap schedule, cp) on the card against the same
 run on the CPU; the Mamba2 SSD scan kernel against its plain version
-(forward and gradient), and reduced mamba2 serve and train runs on the
+(forward, gradient, the chunk-parallel sequence's edges, one launch
+counted per call), and reduced mamba2 serve and train runs on the
 card against the CPU; the gather_matmul kernel on each of its routes
 (tensor cores, CUDA cores; route counters) against its plain version
 (f32 within 1e-5 of max |plain|, bf16 within 1e-2), each hop kept to
@@ -973,6 +974,49 @@ def test_ssd_kernel_matches_plain(cuda, dtype, b, s, h, p, g, n, Q, pad):
         assert (err <= tol * (1 + ref.abs())).all(), float(err.max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,Q,pad", [
+    (2, 256, 8, 64, 1, 128, 256, 0),   # one chunk: no entering state
+    (1, 192, 4, 64, 1, 128, 48, 0),    # Q not a multiple of 64
+    (2, 192, 4, 32, 1, 64, 96, 0),     # a query tile of 32 rows
+    (1, 256, 8, 64, 2, 32, 64, 0),     # g = 2: four heads a group
+    (2, 512, 8, 64, 1, 128, 256, 40),  # a padded tail with dt = 0
+    (1, 96, 3, 5, 1, 6, 32, 0),        # p, n off 4: staged in registers
+])
+def test_ssd_sequence_edges_match_plain(cuda, dtype, b, s, h, p, g, n, Q,
+                                        pad):
+    """The chunk-parallel sequence at the edges its tiling makes: the
+    kernel against ``ssd_scan_plain`` at SSD_TOL, y and the final state."""
+    from repro_torch.kernels import ssd_scan as K
+
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, dtype, b, s, h, p, g, n, pad=pad,
+                                   seed=3)
+    y, st = K.ssd_scan(x, dt, A, Bm, Cm, Q)
+    torch.cuda.synchronize()
+    ry, rst = K.ssd_scan_plain(x, dt, A, Bm, Cm, Q)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol = SSD_TOL[dtype]
+    for out, ref in ((y.float(), ry.float()), (st, rst)):
+        assert torch.isfinite(out).all()
+        err = (out - ref).abs()
+        assert (err <= tol * (1 + ref.abs())).all(), float(err.max())
+
+
+def test_ssd_scan_counts_one_launch_per_call(cuda):
+    """``launches`` rises by exactly one per call, for the whole sequence
+    of kernels, and not for the plain version."""
+    from repro_torch.kernels import ssd_scan as K
+
+    ins = _ssd_inputs(cuda, torch.float32, 2, 128, 4, 32, 1, 16)
+    before = K.launches
+    for i in range(3):
+        K.ssd_scan(*ins, 32)
+        assert K.launches == before + i + 1
+    K.ssd_scan_plain(*ins, 32)
+    torch.cuda.synchronize()
+    assert K.launches == before + 3
+
+
 def test_ssd_kernel_refuses_before_launch(cuda):
     from repro_torch.kernels import ssd_scan as K
 
@@ -986,6 +1030,31 @@ def test_ssd_kernel_refuses_before_launch(cuda):
         K.ssd_scan(x, dt, A, Bm.bfloat16(), Cm, 32)
     with pytest.raises(TypeError):
         K.ssd_scan(x, dt.double(), A, Bm, Cm, 32)
+    assert K.launches == before
+
+
+def test_ssd_largest_chunks_run_and_one_more_is_refused(cuda):
+    """A chunk of 16384 (its acum fills most of a states block's shared
+    memory) against ``ssd_scan_plain`` at SSD_TOL; one position past
+    ``MAX_Q`` is refused with a ValueError before any launch."""
+    from repro_torch.kernels import ssd_scan as K
+
+    Q = 16384
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda, torch.float32, 1, Q, 2, 8, 1, 8)
+    y, st = K.ssd_scan(x, dt, A, Bm, Cm, Q)
+    torch.cuda.synchronize()
+    ry, rst = K.ssd_scan_plain(x, dt, A, Bm, Cm, Q)
+    for out, ref in ((y, ry), (st, rst)):
+        assert torch.isfinite(out).all()
+        err = (out - ref).abs()
+        assert (err <= SSD_TOL[torch.float32] * (1 + ref.abs())).all(), \
+            float(err.max())
+    del x, dt, A, Bm, Cm, y, st, ry, rst
+    before = K.launches
+    Q = K.MAX_Q + 1
+    ins = _ssd_inputs(cuda, torch.float32, 1, Q, 2, 8, 1, 8)
+    with pytest.raises(ValueError, match="at most"):
+        K.ssd_scan(*ins, Q)
     assert K.launches == before
 
 
