@@ -39,7 +39,15 @@ logits against the plain scan and attention routes) and trained at full
 width and depth with two ranks as collective x layer, ODC x minibatch and
 odc-overlap (a profiled step of ODC x minibatch and one of odc-overlap).
 The chained rings are timed at the grid the overlap gives them and at
-the whole card.
+the whole card.  The moe and vlm families: grok-1-314b served at its
+published widths with 2 of its 64 layers (the prefill on the kernel and
+on the plain attention route, and prefill of S-1 tokens plus one decode
+step with the router tallies against the full forward, each under the
+routing rule of ``repro_torch.models.moe.routing_rule``; a decode-step
+profile), reduced grok-1 and llama4-maverick trained with two ranks as
+collective x layer, ODC x minibatch and odc-overlap and with
+weight-stationary experts (one profiled step), and chameleon-34b at its
+published widths trained with 1 of 48 layers and served with 4.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -101,6 +109,15 @@ GRAD_NORM_RTOL = 1e-5
 # Every sound run measured 0; the limit leaves room for a flip of that
 # kind and no more (the readings of planted faulty scatters: PERF.md).
 TRAIN_LOSS_RTOL = 1e-5
+# Weight-stationary experts (moe_ep='data') against the gathering run:
+# tests/test_moe_ep.py holds every parameter after one step at lr 1e-2
+# within 2e-3, a fifth of the lr; the same fifth of the run's lr (2e-4 at
+# the driver's 1e-3).  AdamW's update barely changes when a gradient is
+# scaled, so an expert gradient counted twice shows only in the step-0
+# gradient norm, which the run is held to as every config is
+# (``_hold_to_first``); a gradient on the wrong rank's shard moves its
+# parameters by about the lr a step.
+EP_PARAM_TOL_PER_LR = 0.2
 
 # The serve runs: qwen-1.5b at its published widths, fp32, one card.
 ARCH = "qwen-1.5b"
@@ -237,6 +254,22 @@ GM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # packed shards about 10.3 GiB more: full depth fits the card (peaks on an
 # H100 80GB: 38.7 GiB, and 49.0 under the overlap schedule)
 ZAMBA = "zamba2-1.2b"
+# The moe and vlm families, f32, seed 0.  grok-1-314b serves at its
+# published widths with 2 of its 64 layers: 7.43 B parameters, 29.7 GB
+# (its full depth, 314 B, is ten times the card).  Training a moe config
+# at full width does not fit one card (one grok-1 layer with AdamW state
+# and ODC's gathered copies needs about 130 GB), so the reduced grok-1
+# (period 1, top-2, gelu) and llama4-maverick (period 2, top-1, swiglu, a
+# shared expert, 8 vision-stub positions) train with TRAIN's batches.
+# chameleon-34b trains at its published widths with 1 of its 48 layers
+# (1.77 B parameters with its untied embedding and head) and serves with 4
+# (3.9 B, 15.4 GB).
+GROK = "grok-1-314b"
+LLAMA4 = "llama4-maverick-400b-a17b"
+CHAMELEON = "chameleon-34b"
+GROK_SERVE_LAYERS = 2
+CHAMELEON_TRAIN_LAYERS = 1
+CHAMELEON_SERVE_LAYERS = 4
 
 
 def fail(msg: str):
@@ -1937,6 +1970,375 @@ def phase_zamba_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4m: the moe and vlm families: grok-1-314b served at full width,
+# reduced grok-1 and llama4-maverick trained, chameleon-34b at full width
+# ---------------------------------------------------------------------------
+class _Routing:
+    """Records every ``moe._router`` call's (top_i, probs) while active,
+    so that two forwards over the same tokens can be held to
+    ``moe.routing_rule`` (``_hold_routing``); with ``inputs``, also each
+    call's (tokens, router weights) in ``inputs``, for a router of
+    another package to route them again (the tests)."""
+
+    def __init__(self, inputs: bool = False):
+        self.calls, self.inputs, self._keep = [], [], inputs
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._router = moe._router
+
+        def capture(cfg, p, toks):
+            out = self._router(cfg, p, toks)
+            self.calls.append((out[1].detach(), out[3].detach()))
+            if self._keep:
+                self.inputs.append((toks.detach().clone(),
+                                    p["router"].detach().clone()))
+            return out
+
+        moe._router = capture
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._router = self._router
+
+
+def _hold_routing(tag, ref, got, B):
+    """The routing rule over two runs' recorded calls (pairs of (top_i,
+    probs) per moe block, groups one batch row each): fails on a fault,
+    prints the near-ties; returns the rows free of them."""
+    from repro_torch.models import moe
+
+    if len(ref) != len(got) or not ref:
+        fail(f"{tag}: {len(ref)} and {len(got)} router calls")
+    ok = torch.ones(B, dtype=torch.bool)
+    faults = near = tokens = 0
+    for (ta, pa), (tb, _) in zip(ref, got):
+        f, n, tied = moe.routing_rule(ta, tb, pa)
+        faults, near = faults + f, near + n
+        tokens += ta.shape[0] * ta.shape[1]
+        ok &= ~tied.cpu().reshape(B, -1).any(-1)
+    log(f"{tag}: routing of {tokens} tokens in {len(ref)} router "
+        f"calls: {faults} disagreements beyond {moe.ROUTING_MARGIN:g} "
+        f"(faults), {near} near-ties; {int(ok.sum())} of {B} rows compared")
+    if faults:
+        fail(f"{tag}: {faults} routing disagreements beyond the margin")
+    return ok
+
+
+def _num_params(cfg) -> int:
+    """The parameters ``init_params`` draws (``ModelConfig.num_params``
+    counts three matrices an expert, grok-1's gelu experts have two)."""
+    from repro_torch.core import fsdp
+    from repro_torch.models import transformer as T
+
+    shapes = T.param_shapes(cfg)
+    return sum(fsdp.get(shapes, p).numel() for p in fsdp.tree_paths(shapes))
+
+
+def _cut(arch, layers):
+    """``arch``'s published config with ``layers`` of its layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def phase_grok_serve() -> dict:
+    """grok-1-314b at its published widths, GROK_SERVE_LAYERS of its 64
+    layers, through the serve entry point (wave); then the prefill on the
+    kernel and on the plain attention route, and prefill of S-1 tokens
+    plus one decode step (router tallies) against the full forward's last
+    logits, each under the routing rule; a decode-step profile."""
+    import gc
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve, train
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _cut(GROK, GROK_SERVE_LAYERS)
+    n = _num_params(cfg)
+    log(f"serve {GROK}: full width, {cfg.num_layers} of 64 layers "
+        f"({n / 1e9:.2f} B parameters, {n * 4 / 1e9:.1f} GB in f32), "
+        f"{cfg.num_experts} experts top-{cfg.experts_per_token}")
+    args = serve.parse_args([
+        "--arch", GROK, "--seed", str(SEED), "--device", "cuda", "--dtype",
+        "float32", "--batch", str(WAVE["batch"]), "--prompt-len",
+        str(WAVE["prompt_len"]), "--gen", str(WAVE["gen"])])
+    torch.cuda.reset_peak_memory_stats()
+    train.reset_launches()
+    summary = serve.run(args, cfg=cfg)
+    torch.cuda.synchronize()
+    got = train.read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    L = summary["num_layers"]
+    want = L * (summary["prefill_calls"] + summary["decode_steps"])
+    others = {k: v for k, v in got.items() if k != "flash_attention" and v}
+    log(f"serve {GROK} wave ({L} layers): prefill "
+        f"{summary['prefill_tok_s']:.1f} tok/s, decode "
+        f"{summary['decode_tok_s']:.1f} tok/s, flash_attention launches "
+        f"{got['flash_attention']} (want {L} x ({summary['prefill_calls']} "
+        f"prefill + {summary['decode_steps']} decode) = {want}), other "
+        f"launches {others or 0}, peak memory {peak / 2 ** 30:.2f} GiB, "
+        f"first ids {summary['first_ids'][:8]}")
+    if got["flash_attention"] != want or want == 0 or others:
+        fail(f"serve {GROK}: launches {got}, want {want} attention calls")
+    if not summary["ids_in_vocab"]:
+        fail(f"serve {GROK}: generated ids outside the vocabulary")
+
+    cfg, params, tokens = serve.build(args, cfg)
+    engine = serve.make_engine(cfg, args)
+    batch = engine.prompt_batch(tokens)
+    B, S = tokens.shape
+    train.reset_launches()
+    with _Routing() as kr:
+        kern, cache = engine.prefill(params, batch,
+                                     engine.init_cache(B, S + args.gen))
+    torch.cuda.synchronize()
+    per_prefill = train.read_launches()
+    prev = layers.set_attention_impl(fa.flash_attention_plain)
+    try:
+        train.reset_launches()
+        with _Routing() as pr:
+            plain, _ = engine.prefill(params, batch,
+                                      engine.init_cache(B, S + args.gen))
+        torch.cuda.synchronize()
+        plain_launches = train.read_launches()
+    finally:
+        layers.set_attention_impl(prev)
+    ok = _hold_routing(f"{GROK} prefill, kernel vs plain attention route",
+                       pr.calls, kr.calls, B)
+    diff = float((kern[ok, -1] - plain[ok, -1]).abs().max()) \
+        if ok.any() else 0.0
+    finite = bool(torch.isfinite(kern).all())
+    log(f"{GROK} wave prefill: {per_prefill['flash_attention']} attention "
+        f"calls (want {L}); last-position logits {tuple(kern[:, -1].shape)},"
+        f" kernel vs plain attention max|diff| {diff:.3e} over "
+        f"{int(ok.sum())} rows (tol {LOGITS_TOL:g}), finite {finite}, "
+        f"launches on the plain route {sum(plain_launches.values())}")
+    if per_prefill["flash_attention"] != L or not finite \
+            or diff > LOGITS_TOL or any(plain_launches.values()) \
+            or not ok.any():
+        fail(f"{GROK} prefill: kernel and plain attention routes disagree")
+    del plain
+
+    # prefill of S-1 tokens and one decode step (the router tallies)
+    # against the full forward's last logits
+    with torch.no_grad(), _Routing() as fr:
+        full, _, _ = T.apply(cfg, params, batch, last_only=True)
+    inc = engine.init_cache(B, S)
+    head = {k: v[:, :S - 1] for k, v in batch.items()}
+    with _Routing() as ir:
+        _, inc = engine.prefill(params, head, inc)
+        dec, inc = engine.decode(params, inc, tokens[:, S - 1:], S - 1)
+    torch.cuda.synchronize()
+    n_blocks = len(fr.calls)
+    joined = [(torch.cat([a[0], b[0]], 1), torch.cat([a[1], b[1]], 1))
+              for a, b in zip(ir.calls[:n_blocks], ir.calls[n_blocks:])]
+    ok2 = _hold_routing(f"{GROK} prefill {S - 1} + 1 decode vs the full "
+                        f"forward", fr.calls, joined, B)
+    tally = int(inc["moe"]["router_counts"].sum())
+    want_tally = n_blocks * B * S * cfg.experts_per_token
+    diff2 = float((dec[ok2, -1] - full[ok2, -1]).abs().max()) \
+        if ok2.any() else 0.0
+    log(f"{GROK} prefill {S - 1} + 1 decode step vs the full forward's last "
+        f"logits: max|diff| {diff2:.3e} over {int(ok2.sum())} rows (tol "
+        f"{LOGITS_TOL:g}); router tallies sum {tally} (want {want_tally})")
+    if diff2 > LOGITS_TOL or tally != want_tally or not ok2.any() \
+            or not bool(torch.isfinite(dec).all()):
+        fail(f"{GROK}: prefill plus decode differs from the full forward")
+    del full, dec, inc
+    tok = kern[:, -1].argmax(-1)[:, None]
+    profile = _profile_decode(engine, params, cache, tok, S)
+    del params, engine, cache, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": got, "summary": summary, "peak": peak,
+            "logits_diff": diff, "decode_diff": diff2, "profile": profile}
+
+
+def _moe_train_args(arch, comm, schedule, steps):
+    """TRAIN's settings for the reduced ``arch``."""
+    from repro_torch.launch import train
+
+    return train.parse_args([
+        "--arch", arch, "--reduced", "--seed", str(SEED), "--device",
+        "cuda", "--comm", comm, "--schedule", schedule, "--strategy",
+        "lb_mini", "--dataset", "longalign", "--data-axis",
+        str(TRAIN["data_axis"]), "--steps", str(steps), "--max-tokens",
+        str(TRAIN["max_tokens"]), "--max-len", str(TRAIN["max_len"]),
+        "--minibatch-per-device", str(TRAIN["minibatch_per_device"])])
+
+
+def _train_run(tag, cfg, args, **kw):
+    """One train run through the entry point, its launches held to
+    ``_expected_launches``; returns its summary (peak and launches in)."""
+    import gc
+
+    from repro_torch.launch import train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train.reset_launches()
+    summary = train.run(args, cfg=cfg, **kw)
+    torch.cuda.synchronize()
+    got = train.read_launches()
+    want = _expected_launches(cfg, args.comm, summary["schedule"], summary,
+                              summary["dims"])
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train {tag}: losses {summary['losses']}, step s "
+        f"{[round(t, 3) for t in summary['step_s']]}, tokens "
+        f"{[st['tokens'] for st in summary['steps']]}, microbatches "
+        f"{[(st['microbatches'], st['counts']) for st in summary['steps']]}"
+        f", {summary['tok_s']:.1f} tok/s, peak memory {peak / 2 ** 30:.2f} "
+        f"GiB, grad norms {[st['grad_norm'] for st in summary['steps']]}, "
+        f"launches {got} (want {want})")
+    if not all(math.isfinite(x) for x in summary["losses"]):
+        fail(f"train {tag}: a loss is not finite")
+    if got != want:
+        fail(f"train {tag}: kernel launches {got}, want {want}")
+    ring = {"odc": ("odc_gather", "odc_scatter_accumulate"),
+            "odc-overlap": ("odc_gather_layers",
+                            "odc_scatter_accumulate_layers")}
+    for name in ("flash_attention",) + ring.get(args.comm, ()):
+        if not got[name]:
+            fail(f"train {tag}: {name} never launched")
+    summary["peak_bytes"] = peak
+    summary["launches"] = got
+    return summary
+
+
+def phase_moe_train() -> dict:
+    """Reduced grok-1 (P = 1, top-2, gelu) and reduced llama4-maverick (P =
+    2, top-1, swiglu, a shared expert, 8 vision-stub positions), 2 ranks,
+    TRAIN's batches, as collective x layer, ODC x minibatch and
+    odc-overlap, held to each other as qwen's runs are; ODC x minibatch
+    again with weight-stationary experts (moe_ep='data'), held to the
+    gathering run as the configs are and its parameters within
+    EP_PARAM_TOL_PER_LR of the lr; one profiled step.  Reduced: at full
+    width one grok-1 layer with AdamW state and ODC's gathered copies
+    needs about 130 GB (PERF.md, section 4)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import fsdp
+
+    runs = {}
+    for arch in (GROK, LLAMA4):
+        cfg = get_reduced(arch)
+        log(f"train {arch} reduced (d_model {cfg.d_model}, {cfg.num_layers}"
+            f" layers at period {cfg.moe_period}, {cfg.num_experts} experts "
+            f"top-{cfg.experts_per_token}, {cfg.activation}, shared expert "
+            f"{cfg.moe_shared_expert}, vision-stub positions "
+            f"{cfg.frontend_tokens}): full-width moe training does not fit "
+            f"one card")
+        mine = {}
+        for comm, schedule in TRAIN_CONFIGS:
+            tag = f"{arch} reduced {comm} x {schedule}"
+            mine[tag] = _train_run(tag, cfg, _moe_train_args(
+                arch, comm, schedule, TRAIN["steps"]), return_params=True)
+        _hold_to_first(mine)
+        btag = f"{arch} reduced odc x minibatch"
+        base = mine[btag]
+        tag = f"{btag} moe_ep=data"
+        args = _moe_train_args(arch, "odc", "minibatch", TRAIN["steps"])
+        ep = _train_run(tag, cfg, args, return_params=True, moe_ep="data")
+        if not ep["ep"]:
+            fail(f"train {tag}: the experts are not stationary")
+        _hold_to_first({btag: base, tag: ep})
+        dl = max(abs(a - b) for a, b in zip(ep["losses"], base["losses"]))
+        dp = max(float((fsdp.get(ep["params"], p).float()
+                        - fsdp.get(base["params"], p).float()).abs().max())
+                 for p in fsdp.tree_paths(base["params"]))
+        tol = EP_PARAM_TOL_PER_LR * args.lr
+        log(f"train {tag} against the gathering run: losses differ by at "
+            f"most {dl:.3e} (bound 1e-5), parameters after "
+            f"{TRAIN['steps']} steps at lr {args.lr:g} by {dp:.3e} (bound "
+            f"{tol:g})")
+        if dl >= 1e-5 or dp >= tol:
+            fail(f"train {tag}: outside tests/test_moe_ep.py's bounds, "
+                 f"scaled to the lr")
+        mine[tag] = ep
+        for run in mine.values():
+            run.pop("params", None)
+        runs.update(mine)
+    profile = _profile_train_step("odc", "minibatch", cfg=get_reduced(GROK))
+    return {"runs": runs, "profile": profile}
+
+
+def phase_chameleon() -> dict:
+    """chameleon-34b at its published widths: trained at
+    CHAMELEON_TRAIN_LAYERS of 48 layers with 2 ranks (collective x layer,
+    ODC x minibatch, held to each other), served at CHAMELEON_SERVE_LAYERS
+    (wave), its prefill on the kernel and the plain attention route."""
+    import gc
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve, train
+    from repro_torch.models import layers
+
+    cfg = _cut(CHAMELEON, CHAMELEON_TRAIN_LAYERS)
+    log(f"train {CHAMELEON}: full width, {cfg.num_layers} of 48 layers "
+        f"({_num_params(cfg) / 1e9:.3f} B parameters)")
+    runs = {}
+    for comm, schedule in TRAIN_CONFIGS[:2]:
+        tag = f"{CHAMELEON} {comm} x {schedule}"
+        runs[tag] = _train_run(tag, cfg, _train_args(
+            CHAMELEON, comm, schedule, TRAIN["steps"]))
+    _hold_to_first(runs)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _cut(CHAMELEON, CHAMELEON_SERVE_LAYERS)
+    args = serve.parse_args([
+        "--arch", CHAMELEON, "--seed", str(SEED), "--device", "cuda",
+        "--dtype", "float32", "--batch", str(WAVE["batch"]), "--prompt-len",
+        str(WAVE["prompt_len"]), "--gen", str(WAVE["gen"])])
+    torch.cuda.reset_peak_memory_stats()
+    train.reset_launches()
+    summary = serve.run(args, cfg=cfg)
+    torch.cuda.synchronize()
+    got = train.read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    L = summary["num_layers"]
+    want = L * (summary["prefill_calls"] + summary["decode_steps"])
+    log(f"serve {CHAMELEON} wave ({L} of 48 layers, "
+        f"{_num_params(cfg) * 4 / 1e9:.1f} GB in f32): prefill "
+        f"{summary['prefill_tok_s']:.1f} tok/s, decode "
+        f"{summary['decode_tok_s']:.1f} tok/s, flash_attention launches "
+        f"{got['flash_attention']} (want {want}), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB, first ids {summary['first_ids'][:8]}")
+    others = {k: v for k, v in got.items() if k != "flash_attention" and v}
+    if got["flash_attention"] != want or want == 0 or others \
+            or not summary["ids_in_vocab"]:
+        fail(f"serve {CHAMELEON}: launches {got}, want {want}")
+    cfg, params, tokens = serve.build(args, cfg)
+    engine = serve.make_engine(cfg, args)
+    batch = engine.prompt_batch(tokens)
+    B, S = tokens.shape
+    kern, _ = engine.prefill(params, batch, engine.init_cache(B, S))
+    prev = layers.set_attention_impl(fa.flash_attention_plain)
+    try:
+        plain, _ = engine.prefill(params, batch, engine.init_cache(B, S))
+    finally:
+        layers.set_attention_impl(prev)
+    diff = float((kern[:, -1] - plain[:, -1]).abs().max())
+    log(f"{CHAMELEON} wave prefill: kernel vs plain attention last-position"
+        f" logits max|diff| {diff:.3e} (tol {LOGITS_TOL:g})")
+    if diff > LOGITS_TOL or not bool(torch.isfinite(kern).all()):
+        fail(f"{CHAMELEON} prefill: kernel and plain attention disagree")
+    del params, engine, kern, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "launches": got, "summary": summary, "peak": peak}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serve qwen-1.5b at full width through the entry point, then
 # the wave prefill with the plain attention, and a decode-step profile
 # ---------------------------------------------------------------------------
@@ -2163,15 +2565,26 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
     from repro_torch.models import transformer as T
 
     L = cfg.num_layers
+    # the leaves the rings move (not replicated, not stationary experts)
     sharded = [p for p in fsdp.tree_paths(dims)
-               if fsdp.get(dims, p) is not None]
+               if fsdp.moves(fsdp.get(dims, p))]
     top = [p for p in sharded if fsdp.stack_depth(p) == 0]
     block = fsdp.layer_dims(dims, fsdp.trunk_group(dims))
-    per_layer = sum(fsdp.get(block, p) is not None
-                    for p in fsdp.tree_paths(block))
+    moving = lambda b: sum(fsdp.moves(fsdp.get(b, p))
+                           for p in fsdp.tree_paths(b))
     # blocks outside the chained rings under the overlap schedule: the
     # hybrid's tail
     tail = T.hybrid_split(cfg)[2] if cfg.family == "hybrid" else 0
+    if T.is_moe(cfg):
+        # n_super moe blocks and n_super * (P-1) dense blocks
+        P, n_super = T.moe_split(cfg)
+        trunk_leaves = n_super * (moving(block["moe"]) + (P - 1) * (
+            moving(block["dense"]) if P > 1 else 0))
+        per_layer = moving(block["moe"])  # (no tail: unused)
+        L = n_super * P
+    else:
+        per_layer = moving(block)
+        trunk_leaves = L * per_layer
     from repro_torch.launch.train import KERNELS
 
     # the kernels every microbatch runs, each in its forward and in its
@@ -2235,10 +2648,13 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
             want["odc_gather"] += len(sharded)
             want["odc_scatter_accumulate"] += len(sharded)
         elif schedule == "minibatch":
-            # each rank runs only its real microbatches; every leaf is
-            # gathered once and scattered once per step
+            # each rank runs only its real microbatches (the moe family:
+            # every microbatch, whose padding carries its router loss);
+            # every leaf is gathered once and scattered once per step
+            mbs = (summary["world"] * st["microbatches"] if T.is_moe(cfg)
+                   else sum(st["counts"]))
             for kern, k in per_mb.items():
-                want[kern] += 2 * k * sum(st["counts"])
+                want[kern] += 2 * k * mbs
             want["odc_gather"] += len(sharded) * ring
             want["odc_scatter_accumulate"] += len(sharded) * ring
         else:
@@ -2248,9 +2664,9 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
             M = st["microbatches"]
             for kern, k in per_mb.items():
                 want[kern] += 2 * k * summary["world"] * M
-            want["odc_gather"] += M * (len(top) + 2 * L * per_layer) * ring
+            want["odc_gather"] += M * (len(top) + 2 * trunk_leaves) * ring
             want["odc_scatter_accumulate"] += \
-                M * (len(top) + L * per_layer) * ring
+                M * (len(top) + trunk_leaves) * ring
     return want
 
 
@@ -3587,6 +4003,9 @@ def main() -> int:
     mamba_trained = phase_mamba_train()
     zamba_served = phase_zamba_serve()
     zamba_trained = phase_zamba_train()
+    grok_served = phase_grok_serve()
+    moe_trained = phase_moe_train()
+    chameleon = phase_chameleon()
     served = phase_serve()
     trained = phase_train()
     cp_trained = phase_cp_train()
@@ -3598,10 +4017,14 @@ def main() -> int:
         runs[tag] = run
     runs.update(mamba_trained["runs"])
     runs.update(zamba_trained["runs"])
+    runs.update(moe_trained["runs"])
+    runs.update(chameleon["runs"])
     records = phase_times(errs, grad_errs, gm["errs"], {
         "serve": served["launches"],
         f"serve {MAMBA}": mamba_served["launches"],
         f"serve {ZAMBA}": zamba_served["launches"],
+        f"serve {GROK}": grok_served["launches"],
+        f"serve {CHAMELEON}": chameleon["launches"],
         "gather_matmul": gm["launches"]}, runs)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
     print(env["smi"])

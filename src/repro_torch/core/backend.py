@@ -75,6 +75,16 @@ Under a two-tier layout the norms shard over the intra tier only
 (``fsdp.IntraDim``); after the scatters their gradients are summed over
 the inter tier, and a replicated leaf's over every rank (the leftover
 psum of ``gspmd.make_train_step``).
+
+The moe family runs under ``collective``, ``odc`` and ``odc-overlap``;
+``resolve`` refuses it under ``cp`` and the two-tier backends.  Under
+weight-stationary expert parallelism (``fsdp.Stationary`` expert leaves)
+no schedule gathers or scatters an expert leaf: each rank computes with
+its own experts and their gradient lands on its shard through the
+exchange's backward (``gspmd._is_stationary_expert``); the 'minibatch'
+schedule then runs every rank's microbatch j in one lockstep forward, as
+the exchange needs every rank's tokens.  The overlap schedule refuses
+it.
 """
 from __future__ import annotations
 
@@ -361,10 +371,12 @@ def get_backend(name) -> CommBackend:
                      f"{backend_names()}")
 
 
-def resolve(comm, schedule: str):
+def resolve(comm, schedule: str, *, moe: bool = False, ep: bool = False):
     """(backend, schedule) for an engine config: the backend may force its
     implied schedule (``comm='odc-overlap'`` => ``schedule='overlap'``);
-    otherwise the caller's schedule is honoured unchanged."""
+    otherwise the caller's schedule is honoured unchanged.  ``moe``: the
+    model is of the moe family; ``ep``: with weight-stationary expert
+    parallelism."""
     backend = get_backend(comm)
     schedule = backend.implied_schedule or schedule
     if schedule not in SCHEDULES:
@@ -374,6 +386,16 @@ def resolve(comm, schedule: str):
             f"comm {backend.name!r} under the overlap schedule is not yet "
             f"ported to repro_torch (ROADMAP.md queue 1); use schedule "
             f"'minibatch' or 'layer'")
+    if moe and (backend is CP or backend.two_tier):
+        raise NotImplementedError(
+            f"the moe family under comm {backend.name!r} is not yet ported "
+            f"to repro_torch (ROADMAP.md queue 1 item 12); use comm "
+            f"'collective', 'odc' or 'odc-overlap'")
+    if ep and schedule == "overlap":
+        raise NotImplementedError(
+            "weight-stationary expert parallelism under the overlap "
+            "schedule is not yet ported to repro_torch (ROADMAP.md queue 1 "
+            "item 13); use schedule 'minibatch' or 'layer'")
     return backend, schedule
 
 
@@ -387,7 +409,7 @@ def _gather_trees(backend, trees, dims, order, differentiable):
     for path in fsdp.tree_paths(dims):
         d = fsdp.get(dims, path)
         leaves = [fsdp.get(t, path) for t in trees]
-        if d is None:
+        if not fsdp.moves(d):
             full = leaves
         elif differentiable:
             full = backend.param_gather(leaves, d, order)
@@ -434,19 +456,20 @@ def _stacked(tree):
 
 def _unit_dims(dims):
     """The dims of every subtree that ``pxform`` is handed, keyed by its
-    top-level keys: the top-level leaves, and one layer (block) of each
-    stacked group (the hybrid's ``mamba`` and ``mamba_tail`` blocks have
-    the same leaves, sharded alike, so they share a key)."""
+    top-level keys: the top-level leaves, and one block of each stacked
+    kind (the hybrid's ``mamba`` and ``mamba_tail`` blocks have the same
+    leaves, sharded alike, so they share a key; the moe family's moe and
+    dense blocks have keys of their own)."""
     units = {frozenset(fsdp.top_dims(dims)): fsdp.top_dims(dims)}
-    for group in fsdp.stacked_groups(dims):
-        d = fsdp.layer_dims(dims, group)
+    for d in fsdp.block_dims(dims):
         units[frozenset(d)] = d
     return units
 
 
 def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
                         dims, order=None, chain=None, cp: int = 1,
-                        pipe_stages: int = 1, pipe_interleave: bool = False):
+                        pipe_stages: int = 1, pipe_interleave: bool = False,
+                        lockstep: bool = False):
     """The gradient loop of one minibatch over all ranks.
 
       loss_ranks(params_list, batches, pxform, prefetch)
@@ -461,6 +484,9 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
       pipe_stages, pipe_interleave
                   schedule '1f1b': the depth and variant of the stage-0
                   ``instructions_1f1b`` order
+      lockstep    'minibatch' and '1f1b': every rank's microbatch j in one
+                  forward (weight-stationary expert parallelism, whose
+                  exchange spans the ranks), as if one cp group held them
 
     Returns grad_core(shards, microbatches, counts) -> (lsums, toks,
     grads): per rank, the nll sum and token count over its microbatches
@@ -492,7 +518,7 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
             lsums = [zero(fsdp.get(s, ("final_norm",))) for s in shards]
             toks = list(lsums)
             grads_full = [None] * n
-            for grp in cp_groups(n, cp):
+            for grp in cp_groups(n, n if lockstep else cp):
                 compute = {}
                 for r in grp:
                     compute[r], grads_full[r] = trainable(full[r])
@@ -522,7 +548,8 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
             for path in fsdp.tree_paths(dims):
                 d = fsdp.get(dims, path)
                 ys = [fsdp.get(g, path) for g in grads_full]
-                out = ys if d is None else backend.scatter_dim(ys, d, order)
+                out = backend.scatter_dim(ys, d, order) if fsdp.moves(d) \
+                    else ys
                 for g, o in zip(grads, out):
                     fsdp.put(g, path, o)
                 for g in grads_full:
@@ -592,7 +619,8 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
 def _sum_leftover(grads, dims, backend):
     """The leftover psum, in place: a replicated leaf's gradient summed
     over every rank, an ``IntraDim`` leaf's (already scattered over its
-    intra tier) over the inter tier."""
+    intra tier) over the inter tier; a stationary leaf's is its rank's
+    own."""
     n = len(grads)
     for path in fsdp.tree_paths(dims):
         d = fsdp.get(dims, path)

@@ -12,7 +12,17 @@ dims later as its group's stack depth (``stack_depth``, the rule of
 ``repro.core.fsdp.stack_spec`` and ``gspmd._stack_rank_for_path``):
 ``layers`` (L, ...) of the dense and ssm families 1; the hybrid family's
 ``mamba`` (n_super, P, ...) 2, ``mamba_tail`` (tail, ...) 1 and
-``shared_attn`` 0 (one block, not stacked).  A dim that the rank
+``shared_attn`` 0 (one block, not stacked); the moe family's
+``layers/moe`` (n_super, ...) 1 and ``layers/dense`` (n_super, P-1, ...)
+2.  The moe block's leaves: ``router`` (d, E) on dim 0; the experts
+``w_up`` and ``w_gate`` (E, d, f) on dim 1 and ``w_down`` (E, f, d) on
+dim 2, told apart from a dense FFN's leaves of the same names by their
+parent key ``moe`` (a stacked ``shared_mlp`` leaf has the same rank as a
+sliced expert leaf, the collision ``gspmd._logical_rank`` warns of).
+Under weight-stationary expert parallelism (``ep``, the reference's
+``moe_ep='data'`` when the rank count divides E) the experts shard on
+their E dim instead, and their dim is ``Stationary``: they are never
+gathered or scattered, tokens travel to them.  A dim that the rank
 count does not divide is not sharded (``sanitize_spec``): the leaf is
 replicated, every rank holds all of it, and its gradient is summed over
 the ranks.
@@ -40,8 +50,11 @@ import torch
 #: stack depth of each top-level parameter group (the groups of every
 #: ported family); any other top-level key is not stacked
 STACK_DEPTH = {"layers": 1, "mamba": 2, "mamba_tail": 1, "shared_attn": 0}
-_DIM0 = ("lm_head", "wq", "wk", "wv", "w_gate", "w_up", "in_proj")
+#: stack depth of the moe family's super-layer containers under ``layers``
+SUPER_DEPTH = {"moe": 1, "dense": 2}
+_DIM0 = ("lm_head", "wq", "wk", "wv", "w_gate", "w_up", "in_proj", "router")
 _DIM1 = ("embed", "wo", "w_down", "out_proj", "conv_w")
+_EXPERT = ("w_up", "w_gate", "w_down")
 
 
 class IntraDim(int):
@@ -57,16 +70,42 @@ class IntraDim(int):
         return f"IntraDim({int(self)}, intra={self.intra})"
 
 
+class Stationary(int):
+    """The sharded dim of an expert leaf under weight-stationary expert
+    parallelism: each rank holds its E/n experts, which are neither
+    gathered nor scattered (the gradient of a rank's experts lands on its
+    shard through the dispatch exchange's backward)."""
+
+    def __repr__(self):
+        return f"Stationary({int(self)})"
+
+
 def shifted(d, k: int):
     """A sharded dim (or None) moved by k, keeping its kind."""
     if d is None:
         return None
-    return IntraDim(d + k, d.intra) if isinstance(d, IntraDim) else d + k
+    if isinstance(d, IntraDim):
+        return IntraDim(d + k, d.intra)
+    return type(d)(d + k)
+
+
+def moves(d) -> bool:
+    """Whether a leaf sharded on ``d`` is gathered and scattered (neither
+    replicated nor stationary)."""
+    return d is not None and not isinstance(d, Stationary)
 
 
 def stack_depth(path: Sequence[str]) -> int:
     """Leading stacked-layer dims of the leaf at ``path`` (a key tuple)."""
+    if len(path) > 2 and path[0] == "layers" and path[1] in SUPER_DEPTH:
+        return SUPER_DEPTH[path[1]]
     return STACK_DEPTH.get(path[0], 0) if len(path) > 1 else 0
+
+
+def is_expert(path: Sequence[str]) -> bool:
+    """An expert bank of a moe block: ``w_up``, ``w_gate`` or ``w_down``
+    under the parent key ``moe``."""
+    return len(path) >= 2 and path[-2] == "moe" and path[-1] in _EXPERT
 
 
 def stacked_groups(tree) -> List[str]:
@@ -84,15 +123,24 @@ def trunk_group(tree) -> str:
 
 
 def leaf_dim(path: Sequence[str], shape, n: int,
-             intra: Optional[int] = None) -> Optional[int]:
+             intra: Optional[int] = None, ep: bool = False) -> Optional[int]:
     """The sharded dim of the leaf at ``path`` (a key tuple) with this
     full shape, or None when the leaf is replicated over n ranks.
     ``intra``: the intra tier's size under a two-tier layout of n ranks
-    (the last rule's leaves then shard over it alone: ``IntraDim``)."""
+    (the last rule's leaves then shard over it alone: ``IntraDim``).
+    ``ep``: weight-stationary expert parallelism (the expert banks on
+    their E dim, ``Stationary``)."""
     name = path[-1]
     stacked = stack_depth(path)
     logical = len(shape) - stacked
-    if name in _DIM0:
+    if is_expert(path):
+        if ep:
+            dim = stacked
+            if shape[dim] % n or shape[dim] < n:
+                return None
+            return Stationary(dim)
+        d = 2 if name == "w_down" else 1
+    elif name in _DIM0:
         d = 0
     elif name in _DIM1:
         d = 1
@@ -115,16 +163,34 @@ def _map(fn, tree, path=()):
     return fn(path, tree)
 
 
-def leaf_dims(params, n: int, intra: Optional[int] = None):
+def leaf_dims(params, n: int, intra: Optional[int] = None,
+              ep: bool = False):
     """Tree of the sharded dim of every leaf (None = replicated)."""
-    return _map(lambda p, x: leaf_dim(p, tuple(x.shape), n, intra), params)
+    return _map(lambda p, x: leaf_dim(p, tuple(x.shape), n, intra, ep),
+                params)
 
 
 def layer_dims(dims, group: str = "layers", depth: Optional[int] = None):
     """The dims of one slice of ``group``'s stacked leaves, ``depth``
-    stack dims in (default: all of them, one layer)."""
-    k = STACK_DEPTH[group] if depth is None else depth
-    return _map(lambda p, d: shifted(d, -k), dims[group])
+    stack dims in (default: all of each leaf's, one block: for the moe
+    family's ``layers``, a tree of one moe block and one dense block)."""
+    return _map(lambda p, d: shifted(
+        d, -(stack_depth((group,) + p) if depth is None else depth)),
+        dims[group])
+
+
+def block_dims(dims) -> List[dict]:
+    """The dims of one block of each stacked kind: a layer of ``layers``
+    (the moe family: a moe block and a dense block), a mamba block of the
+    hybrid's ``mamba`` and ``mamba_tail``."""
+    out = []
+    for group in stacked_groups(dims):
+        d = layer_dims(dims, group)
+        if group == "layers" and set(d) <= set(SUPER_DEPTH):
+            out += [d[k] for k in sorted(d)]
+        else:
+            out.append(d)
+    return out
 
 
 def top_dims(dims):

@@ -7,7 +7,8 @@ per-layer leaves are packed into one (L, c_flat) tensor (``LayerPacking``:
 the leaves' layer shards side by side, in ``fsdp.tree_paths`` order; for
 the hybrid family a "layer" is a super-layer of P mamba blocks, L =
 n_super, and the tail and the shared block move through the single-leaf
-rings with the top-level leaves), and
+rings with the top-level leaves; for the moe family a super-layer of P-1
+dense blocks and one moe block, L = n_super), and
 the step owns three per-rank buffers for its whole length: the packed
 shards, the gathered trunk (L, n*c_flat) and the packed gradient
 (L, c_flat), of which the gradient tree's trunk leaves are views.  The
@@ -84,9 +85,11 @@ class LayerPacking:
     buffers and the leaves.  The chained group is ``fsdp.trunk_group``:
     ``layers``, whose L layers are the rows, or the hybrid's ``mamba``,
     whose L = n_super super-layers are (each row the shards of a
-    super-layer's P blocks, a layer's leaves of shape (P, ...)).
-    Replicated per-layer leaves (a dim the rank count does not divide) are
-    not packed."""
+    super-layer's P blocks, a layer's leaves of shape (P, ...)), or the
+    moe family's ``layers``, whose rows are its super-layers (a moe
+    block's leaves, and its P-1 dense blocks' of shape (P-1, ...)).
+    Replicated per-layer leaves (a dim the rank count does not divide) and
+    stationary experts are not packed: each rank computes with its own."""
 
     def __init__(self, shapes, dims, n: int):
         self.n = n
@@ -101,7 +104,7 @@ class LayerPacking:
             shape = tuple(fsdp.get(shapes[self.group], path).shape)
             self.num_layers = shape[0]
             d = fsdp.get(lay, path)
-            if d is None:
+            if not fsdp.moves(d):
                 self.replicated.append(path)
                 continue
             shard = list(shape[1:])

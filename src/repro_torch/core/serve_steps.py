@@ -2,7 +2,9 @@
 counterparts of ``repro.core.gspmd``'s ``make_prefill_step``,
 ``make_decode_step`` and ``make_continuous_decode_step``.  One card needs
 no mesh and no activation sharder; each step runs under
-``torch.no_grad`` and writes the KV cache in place.
+``torch.no_grad``, writes the KV cache in place and returns the cache to
+carry on with (the ssm caches and the moe family's router tallies are
+new tensors).
 """
 from __future__ import annotations
 

@@ -29,6 +29,14 @@ ranks (``core.ranks.Tiers``), the norms shard over a group's ranks only
 (``fsdp.IntraDim``), and the backend moves every other leaf over both
 tiers; under ``pipe`` the ``1f1b`` schedule issues each rank's
 microbatches in the order of an ``inter``-stage pipeline.
+
+The moe family (``collective``, ``odc``, ``odc-overlap``): ``moe_groups``
+and ``moe_ep`` are ``GSPMDConfig.moe_groups`` and ``moe_ep``.  Every rank
+runs every microbatch of the step, the padding ones included: a padding
+microbatch has no tokens but its router loss counts (``aux * max(tokens,
+1)``), as in the JAX engine, which runs the padded microbatches.  With
+``moe_ep='data'`` and E divisible by the ranks, the experts are
+weight-stationary (``fsdp.Stationary``).
 """
 from __future__ import annotations
 
@@ -50,12 +58,15 @@ from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
 # integer ones that index
 _BATCH_KEYS = ("tokens", "targets", "positions", "segment_ids", "loss_mask")
 _INDEX_KEYS = ("tokens", "targets")
+# batch leaves split by rows only (the stub frontend's embeddings)
+_ROW_KEYS = ("vision_embeds",)
 
 
 def _global_norm(grads: Sequence[dict], dims) -> torch.Tensor:
     """The norm of the whole gradient tree from its shards: every distinct
-    piece of a leaf counts once (all shards of a sharded leaf, the first
-    group's of an ``IntraDim`` leaf, one copy of a replicated leaf)."""
+    piece of a leaf counts once (all shards of a sharded leaf, a
+    stationary expert bank's among them, the first group's of an
+    ``IntraDim`` leaf, one copy of a replicated leaf)."""
     leaves = []
     for path in fsdp.tree_paths(dims):
         parts = [fsdp.get(g, path) for g in grads]
@@ -81,10 +92,24 @@ class Trainer:
     inter: int = 2
     #: schedule '1f1b': the interleaved (halved-warmup) order
     pipe_interleave: bool = False
+    #: the moe family's dispatch groups (0 = one per batch row)
+    moe_groups: int = 0
+    #: 'none' (the expert banks gathered as any leaf) or 'data'
+    #: (weight-stationary expert parallelism over the ranks, when the
+    #: rank count divides the experts; else as 'none')
+    moe_ep: str = "none"
 
     def __post_init__(self):
-        self.backend, self.schedule = B.resolve(self.comm, self.schedule)
         n = self.ranks.n
+        if self.moe_ep not in ("none", "data"):
+            raise ValueError(f"moe_ep must be 'none' or 'data', not "
+                             f"{self.moe_ep!r}")
+        E = self.cfg.num_experts
+        self.moe = T.is_moe(self.cfg)
+        self.ep = (self.moe and self.moe_ep == "data" and E % n == 0
+                   and E >= n)
+        self.backend, self.schedule = B.resolve(self.comm, self.schedule,
+                                                moe=self.moe, ep=self.ep)
         if self.cp != 1 and self.backend is not B.CP:
             raise ValueError(f"cp={self.cp} needs comm 'cp', not "
                              f"{self.backend.name!r}")
@@ -98,7 +123,7 @@ class Trainer:
         self.order = self.backend.ring_order(n, self.device_profile)
         shapes = T.param_shapes(self.cfg)
         self.dims = fsdp.leaf_dims(
-            shapes, n, self.tiers.intra if self.tiers else None)
+            shapes, n, self.tiers.intra if self.tiers else None, self.ep)
         self.chain = None
         if self.schedule == "overlap" and self.backend.chained:
             self.chain = overlap.ChainedLayers(
@@ -109,14 +134,16 @@ class Trainer:
             outs = T.loss_ranks(self.cfg, params_list, batches,
                                 remat=True, pxform=pxform,
                                 prefetch=prefetch, reduction="sum",
-                                cp=self.cp)
+                                cp=self.cp, moe_groups=self.moe_groups,
+                                ep=self.ep)
             return [(l, m["tokens"]) for l, m in outs]
 
         self._grad_core = B.build_schedule_grad(
             self.schedule, loss_ranks=loss_ranks, backend=self.backend,
             dims=self.dims, order=self.order, chain=self.chain, cp=self.cp,
             pipe_stages=self.inter if self.backend.implied_schedule == "1f1b"
-            else 1, pipe_interleave=self.pipe_interleave)
+            else 1, pipe_interleave=self.pipe_interleave,
+            lockstep=self.ep)
 
     # -- state --------------------------------------------------------------
     def init_state(self, params):
@@ -188,6 +215,10 @@ class Trainer:
                     if k in _INDEX_KEYS:
                         x = x.long()
                     mb[k] = x.to(dev)
+                for k in _ROW_KEYS:
+                    if k in batch:
+                        mb[k] = torch.from_numpy(np.ascontiguousarray(
+                            batch[k][j, rs])).to(dev)
                 mbs.append(mb)
             out.append(mbs)
         return out
@@ -205,10 +236,11 @@ class Trainer:
         tokens, and the step's metrics (``_grad_minibatch``).  ``counts``
         gives each batch row's number of real microbatches (the plan's,
         one per rank without cp); the minibatch schedule skips the empty
-        padding after them, which adds exactly nothing."""
+        padding after them, which adds exactly nothing (except for the moe
+        family, whose padding adds its router loss: it runs them all)."""
         mbs = self.split_batch(batch)
         M = len(mbs[0])
-        counts = ([M] * self.ranks.n if counts is None
+        counts = ([M] * self.ranks.n if counts is None or self.moe
                   else self.rank_counts(counts))
         lsums, toks, grads = self._grad_core(shards, mbs, counts)
         dev = lsums[0].device

@@ -15,7 +15,14 @@ and each decode step is the recurrent update; ``--continuous`` refuses
 it, as the JAX engine does.  So does the hybrid family (``--arch
 zamba2-1.2b``): its prefill runs the scan kernel in every mamba block and
 the flash kernel in each invocation of the shared attention block, whose
-KV cache is one per invocation.
+KV cache is one per invocation.  The moe family (``--arch grok-1-314b``,
+``llama4-maverick-400b-a17b``) serves in wave mode: attention through the
+flash kernel, the routed experts as batched products, and a per-row tally
+of tokens per expert carried in the cache so that each decode step drops
+what the full forward would; llama4's prompt batch carries the vision
+stub's patch embeddings (``vision_embeds``, drawn from ``--seed``, over
+the first min(frontend_tokens, prompt) positions), as the JAX driver's
+does.  The vlm family (``--arch chameleon-34b``) is the dense trunk.
 
 Weights are random, drawn from ``--seed`` by a ``torch.Generator`` on the
 target device.  Runs on the card unless ``--device cpu`` is given;
@@ -31,6 +38,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --batch 8 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \\
       --reduced --device cpu
 """
 from __future__ import annotations
@@ -74,8 +83,8 @@ def parse_args(argv=None):
                     help="in-flight batching: a request queue over --slots "
                          "decode lanes with block-allocated KV; short "
                          "requests retire early and queued ones join "
-                         "mid-decode (the dense family only: the ssm and "
-                         "hybrid families serve in wave mode)")
+                         "mid-decode (the dense family only: the vlm, moe, "
+                         "ssm and hybrid families serve in wave mode)")
     ap.add_argument("--slots", type=int, default=4,
                     help="continuous: decode lanes (the decode batch width)")
     ap.add_argument("--requests", type=int, default=12,
@@ -110,19 +119,37 @@ def _device(args) -> torch.device:
     return torch.device(args.device)
 
 
-def build(args):
+def build(args, cfg=None):
     """(cfg, params, prompt tokens) of a run: random weights and prompts
-    from ``--seed``, drawn on the target device."""
+    from ``--seed``, drawn on the target device.  ``cfg``: a model
+    configuration to serve in place of ``--arch``'s (a full-width model
+    cut in depth, for one)."""
     device = _device(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg is None:
+        cfg = get_reduced(args.arch) if args.reduced \
+            else get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = T.init_params(cfg, gen, DTYPES[args.dtype])
     n = args.requests if args.continuous else args.batch
     tokens = torch.randint(1, cfg.vocab_size, (n, args.prompt_len),
                            generator=gen, device=device)
     return cfg, params, tokens
+
+
+def stub_extras(cfg, args, B: int, S: int):
+    """The stub frontend's prefill entries of a (B, S) prompt batch
+    (``repro.launch.serve``'s): for a vision frontend, (B, min(
+    frontend_tokens, S), d) patch embeddings drawn from ``--seed``; else
+    None."""
+    if cfg.frontend != "vision" or not cfg.frontend_tokens:
+        return None
+    device = _device(args)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    ve = torch.randn((B, min(cfg.frontend_tokens, S), cfg.d_model),
+                     generator=gen, device=device)
+    return {"vision_embeds": ve.to(DTYPES[args.dtype])}
 
 
 def make_engine(cfg, args) -> GenerationEngine:
@@ -170,10 +197,11 @@ def _serve_continuous(cfg, params, tokens, args, out) -> dict:
             "ids_in_vocab": bool(((ids >= 0) & (ids < cfg.vocab_size)).all())}
 
 
-def run(args) -> dict:
-    """Serve one run as the flags say; returns its summary."""
+def run(args, cfg=None) -> dict:
+    """Serve one run as the flags say; returns its summary.  ``cfg``: as
+    for ``build``."""
     out = obs_log.from_args("serve", args)
-    cfg, params, tokens = build(args)
+    cfg, params, tokens = build(args, cfg)
     mode = "continuous" if args.continuous else "wave"
     out.info(f"{cfg.name} device={args.device} dtype={args.dtype} "
              f"mode={mode} prompt={args.prompt_len} gen={args.gen}")
@@ -181,7 +209,8 @@ def run(args) -> dict:
         return _serve_continuous(cfg, params, tokens, args, out)
 
     B, S = tokens.shape
-    res = make_engine(cfg, args).generate(params, tokens, args.gen)
+    res = make_engine(cfg, args).generate(
+        params, tokens, args.gen, batch_extras=stub_extras(cfg, args, B, S))
     prefill_tok_s = B * S / max(res.prefill_s, 1e-9)
     decode_tok_s = B * (args.gen - 1) / max(res.decode_s, 1e-9)
     out.info(f"prefill {B}x{S} in {res.prefill_s:.2f}s "

@@ -25,8 +25,16 @@ mamba blocks, each followed by one shared attention block through the
 flash kernel) train under collective, odc, odc-overlap, hier, pipe and
 pipe-int8, and refuse cp (ROADMAP.md queue 1 item 5).  Under the overlap
 schedule the hybrid's chained rings carry one super-layer a ring "layer";
-the tail and the shared block move through the single-leaf rings.
-Weights are random, drawn from
+the tail and the shared block move through the single-leaf rings.  The moe
+family (``--arch grok-1-314b``, ``llama4-maverick-400b-a17b``: super-layers
+of P-1 dense blocks and one moe block, top-k routing with capacity, the
+router's aux loss in the loss) trains under collective, odc and
+odc-overlap (one super-layer a chained ring "layer"), and refuses cp and
+the two-tier backends (ROADMAP.md queue 1 item 12); each step's batch
+carries the vision stub's patch embeddings for llama4 (``vision_embeds``,
+drawn per step from ``numpy.random.RandomState(step)``, as the JAX
+driver draws them).  The vlm family (``--arch chameleon-34b``) trains
+wherever the dense family does.  Weights are random, drawn from
 ``--seed`` by a ``torch.Generator`` on the target device, in float32;
 float32 products run in full f32 (TF32 off).
 Runs on the card unless ``--device cpu`` is given.
@@ -48,6 +56,9 @@ Examples:
       --reduced --device cpu --data-axis 2 --steps 2
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
       --reduced --device cpu --data-axis 2 --comm odc-overlap --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch llama4-maverick-400b-a17b --reduced --device cpu \\
+      --data-axis 2 --comm odc --steps 2
 
 Where the flags mean something else than in ``repro.launch.train``: the
 JAX driver lays its mesh over every host device and ignores
@@ -61,6 +72,7 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.balance.cost import CostModel, make_straggler_profile
@@ -138,7 +150,9 @@ def parse_args(argv=None):
                          "stages x data ranks under the 1F1B schedule, see "
                          "--pipe-stages; -int8 sends the inter tier as "
                          "chunked int8); the ssm and hybrid families "
-                         "(mamba2, zamba2) take every choice but cp")
+                         "(mamba2, zamba2) take every choice but cp, the "
+                         "moe family (grok-1, llama4-maverick) collective, "
+                         "odc and odc-overlap")
     ap.add_argument("--device-profile", default="none",
                     choices=("none", "homogeneous", "one_slow", "bimodal",
                              "uniform"),
@@ -212,6 +226,12 @@ def parse_args(argv=None):
                                   or backend.two_tier):
         ap.error(f"--comm {backend.name} under --schedule overlap is not "
                  f"yet ported to repro_torch (ROADMAP.md queue 1)")
+    if (backend is backends.CP or backend.two_tier) \
+            and T.is_moe(get_config(args.arch)):
+        ap.error(f"--arch {args.arch} (the moe family) under --comm "
+                 f"{backend.name} is not yet ported to repro_torch "
+                 f"(ROADMAP.md queue 1 item 12); use --comm collective, "
+                 f"odc or odc-overlap")
     args.inter = 2
     if backend.two_tier:
         args.inter = (args.nodes if backend.name == "hier"
@@ -237,11 +257,14 @@ def _sync(ranks):
         torch.cuda.synchronize(ranks.devices[0])
 
 
-def run(args, *, return_params: bool = False, cfg=None) -> dict:
+def run(args, *, return_params: bool = False, cfg=None,
+        moe_ep: str = "none") -> dict:
     """Train as the flags say; returns the run's summary (with the final
     parameters, unsharded on the CPU, under "params" if asked).  ``cfg``:
     a model configuration to train in place of ``--arch``'s (a full-width
-    model cut in depth, for one)."""
+    model cut in depth, for one).  ``moe_ep``: the Trainer's (the JAX
+    engine's ``GSPMDConfig.moe_ep``, which its driver sets no flag for
+    either)."""
     out = obs_log.from_args("train", args)
     if args.resume and not args.ckpt_dir:
         raise SystemExit("--resume needs --ckpt-dir")
@@ -272,7 +295,7 @@ def run(args, *, return_params: bool = False, cfg=None) -> dict:
                       opt_cfg=AdamWConfig(lr=args.lr),
                       lr_schedule=lr_schedule, device_profile=profile,
                       cp=args.cp, inter=args.inter,
-                      pipe_interleave=args.pipe_interleave)
+                      pipe_interleave=args.pipe_interleave, moe_ep=moe_ep)
     comm, schedule = trainer.backend.name, trainer.schedule
     tiers = trainer.tiers
     out.info(f"{cfg.name} ({cfg.family}) on {world} ranks "
@@ -281,7 +304,9 @@ def run(args, *, return_params: bool = False, cfg=None) -> dict:
                 if comm == "cp" else "")
              + (f" ({'nodes' if comm == 'hier' else 'stages'} "
                 f"{tiers.inter} x {tiers.intra})" if tiers else "")
-             + f" strategy={args.strategy} schedule={schedule} comm={comm}")
+             + f" strategy={args.strategy} schedule={schedule} comm={comm}"
+             + (" moe_ep=data (weight-stationary experts)" if trainer.ep
+                else ""))
 
     start_step = 0
     last = latest_step(args.ckpt_dir) if args.resume else None
@@ -308,6 +333,16 @@ def run(args, *, return_params: bool = False, cfg=None) -> dict:
         max_len=args.max_len, cost_model=cm, seed=args.seed,
         device_profile=profile, cp=args.cp)
 
+    def extras_for(step):
+        """The stub frontend's per-step embeddings (``repro.launch.train``'s
+        ``extras_for``): a resumed run draws what an uninterrupted one
+        would have."""
+        if cfg.frontend == "vision" and cfg.frontend_tokens:
+            rng = np.random.RandomState(step)
+            return {"vision_embeds": lambda M, W: rng.randn(
+                M, W, cfg.frontend_tokens, cfg.d_model).astype(np.float32)}
+        return None
+
     reset_launches()
     if ranks.devices[0].type == "cuda":
         torch.cuda.reset_peak_memory_stats(ranks.devices[0])
@@ -318,7 +353,7 @@ def run(args, *, return_params: bool = False, cfg=None) -> dict:
                                   start=start_step):
         plan = step_data["plan"]
         batch = build_minibatch(plan, step_data["sample_tokens"],
-                                args.max_tokens)
+                                args.max_tokens, extras=extras_for(i))
         counts = [len(a) for a in plan.assignments]
         split = len(getattr(plan, "cp_split", ()))
         t0 = time.time()
@@ -366,7 +401,7 @@ def run(args, *, return_params: bool = False, cfg=None) -> dict:
                "start_step": start_step, "saved": saved,
                "tokens": tokens_done, "seconds": dt,
                "tok_s": tokens_done / dt if dt > 0 else 0.0,
-               "peak_bytes": peak}
+               "peak_bytes": peak, "ep": trainer.ep}
     if return_params:
         summary["params"] = trainer.unshard(shards)
     return summary

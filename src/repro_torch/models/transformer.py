@@ -1,5 +1,6 @@
-"""Model assembly, dense, ssm and hybrid families: the PyTorch counterpart
-of the dense, ssm and hybrid paths of ``repro.models.transformer``.
+"""Model assembly, dense, vlm, moe, ssm and hybrid families: the PyTorch
+counterpart of those paths of ``repro.models.transformer`` (the audio
+encoder-decoder is not ported yet).
 
     init_params(cfg, gen, dtype)                   -> params dict
     apply(cfg, params, batch, ...)                 -> (logits, aux, caches)
@@ -30,6 +31,22 @@ shared block reads both.  Its caches are ``{"mamba": {"conv", "ssm"}
 invocation, written in place, "tail": {"conv", "ssm"} (tail, ...) or
 None}``.  As the reference does, the shared block takes the hidden state
 alone (no concatenation with the embedding, no per-invocation LoRA).
+
+The vlm family (chameleon) is the dense trunk; a batch may carry
+``vision_embeds`` (B, n, d), the stub frontend's patch embeddings, written
+over the first n positions when the config has a vision frontend with
+``frontend_tokens`` > 0 (chameleon has none: its image codes are tokens).
+
+The moe family has ``n_super = L // P`` super-layers of P = ``moe_period``
+layers: P-1 dense blocks (``layers/dense``, stacked ``(n_super, P-1,
+...)``, absent for P = 1) and then one moe block (``layers/moe``,
+``(n_super, ...)``: attention, the routed experts ``moe``, and
+``shared_mlp`` when the config has a shared expert), every layer global.
+Its caches are ``{"moe": {"k", "v", "router_counts"}, "dense": {"k",
+"v"}}``: attention KV written in place, and the router's (n_super, B, k,
+E) int32 tally of tokens per expert, returned anew, which makes prefill
+plus decode drop what the full forward drops (``moe.moe_apply``).
+``apply`` returns the summed router aux loss of the moe blocks.
 """
 from __future__ import annotations
 
@@ -40,26 +57,47 @@ from repro_torch.core import fsdp
 from repro_torch.core.odc import prefetch_scan
 from repro_torch.core.ranks import cp_groups
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 
 
 def _require_ported(cfg: ModelConfig):
-    if cfg.num_experts or cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
             f"yet (ROADMAP.md, queue 1 item 2); the port runs the dense, "
-            f"ssm and hybrid families")
+            f"vlm, moe, ssm and hybrid families")
+
+
+def is_moe(cfg: ModelConfig) -> bool:
+    """The moe trunk (the reference's ``cfg.num_experts`` branch)."""
+    return bool(cfg.num_experts) and cfg.family not in ("ssm", "hybrid",
+                                                        "audio")
 
 
 def require_cp(cfg: ModelConfig):
     """Refuse context parallelism for a family that has no cp path."""
-    if cfg.family != "dense":
+    if is_moe(cfg) or (cfg.family == "vlm" and cfg.frontend_tokens):
+        raise NotImplementedError(
+            f"{cfg.name}: context parallelism of the {cfg.family} family is "
+            f"not ported (ROADMAP.md, queue 1 item 12): the router's "
+            f"capacity and the vision stub's positions are per sequence, "
+            f"not per sequence shard")
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: context parallelism of the {cfg.family} family is "
             f"not ported (ROADMAP.md, queue 1 item 5): a scan split over the "
             f"cp ranks (the {cfg.family} family's mamba blocks) needs its "
             f"state passed between them")
+
+
+def moe_split(cfg: ModelConfig):
+    """(P, n_super) of a moe config: super-layers of P-1 dense blocks and
+    one moe block (a remainder of L % P layers is dropped, as in the
+    reference)."""
+    P = cfg.moe_period
+    return P, cfg.num_layers // P
 
 
 def hybrid_split(cfg: ModelConfig):
@@ -80,6 +118,20 @@ def _dense_block_params(gen, cfg, dtype, prefix_shape=()):
         "mlp_norm": zeros(),
         "mlp": L.mlp_params(gen, cfg, dtype, prefix_shape),
     }
+
+
+def _moe_block_params(gen, cfg, dtype, prefix_shape=()):
+    zeros = lambda: torch.zeros(prefix_shape + (cfg.d_model,), dtype=dtype,
+                                device=gen.device)
+    p = {
+        "attn_norm": zeros(),
+        "attn": L.attn_params(gen, cfg, dtype, prefix_shape),
+        "mlp_norm": zeros(),
+        "moe": moe_mod.moe_params(gen, cfg, dtype, prefix_shape),
+    }
+    if cfg.moe_shared_expert:
+        p["shared_mlp"] = L.mlp_params(gen, cfg, dtype, prefix_shape)
+    return p
 
 
 def _mamba_block_params(gen, cfg, dtype, prefix_shape=()):
@@ -109,6 +161,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                                                        (tail,))
         params["shared_attn"] = _dense_block_params(gen, cfg, dtype)
         return params
+    if is_moe(cfg):
+        P, n_super = moe_split(cfg)
+        params["layers"] = {"moe": _moe_block_params(gen, cfg, dtype,
+                                                     (n_super,))}
+        if P > 1:
+            params["layers"]["dense"] = _dense_block_params(
+                gen, cfg, dtype, (n_super, P - 1))
+        return params
     block = _mamba_block_params if cfg.family == "ssm" \
         else _dense_block_params
     params["layers"] = block(gen, cfg, dtype, (cfg.num_layers,))
@@ -126,19 +186,41 @@ def _mamba_block_shapes(cfg, meta, pre):
     return {"norm": meta(*pre, d), "mamba": mamba}
 
 
-def _dense_block_shapes(cfg, meta, pre):
-    d, f = cfg.d_model, cfg.d_ff
-    qd, kvd, hd = cfg.q_dim, cfg.kv_dim, cfg.resolved_head_dim
+def _attn_shapes(cfg, meta, pre):
+    d, qd, kvd, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, \
+        cfg.resolved_head_dim
     attn = {"wq": meta(*pre, d, qd), "wk": meta(*pre, d, kvd),
             "wv": meta(*pre, d, kvd), "wo": meta(*pre, qd, d)}
     if cfg.qk_norm:
         attn["q_norm"] = meta(*pre, hd)
         attn["k_norm"] = meta(*pre, hd)
-    mlp = {"w_up": meta(*pre, d, f), "w_down": meta(*pre, f, d)}
+    return attn
+
+
+def _mlp_shapes(cfg, meta, pre, *lead, d_ff=None):
+    """An FFN's leaves; ``lead`` dims (the experts) before each matrix."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    mlp = {"w_up": meta(*pre, *lead, d, f), "w_down": meta(*pre, *lead, f, d)}
     if cfg.activation in ("swiglu", "geglu"):
-        mlp["w_gate"] = meta(*pre, d, f)
-    return {"attn_norm": meta(*pre, d), "attn": attn,
-            "mlp_norm": meta(*pre, d), "mlp": mlp}
+        mlp["w_gate"] = meta(*pre, *lead, d, f)
+    return mlp
+
+
+def _dense_block_shapes(cfg, meta, pre):
+    d = cfg.d_model
+    return {"attn_norm": meta(*pre, d), "attn": _attn_shapes(cfg, meta, pre),
+            "mlp_norm": meta(*pre, d), "mlp": _mlp_shapes(cfg, meta, pre)}
+
+
+def _moe_block_shapes(cfg, meta, pre):
+    d, E = cfg.d_model, cfg.num_experts
+    moe = _mlp_shapes(cfg, meta, pre, E, d_ff=cfg.resolved_moe_d_ff)
+    moe["router"] = meta(*pre, d, E)
+    block = {"attn_norm": meta(*pre, d), "attn": _attn_shapes(cfg, meta, pre),
+             "mlp_norm": meta(*pre, d), "moe": moe}
+    if cfg.moe_shared_expert:
+        block["shared_mlp"] = _mlp_shapes(cfg, meta, pre)
+    return block
 
 
 def param_shapes(cfg: ModelConfig):
@@ -157,6 +239,12 @@ def param_shapes(cfg: ModelConfig):
         params["shared_attn"] = _dense_block_shapes(cfg, meta, ())
     elif cfg.family == "ssm":
         params["layers"] = _mamba_block_shapes(cfg, meta, (cfg.num_layers,))
+    elif is_moe(cfg):
+        P, n_super = moe_split(cfg)
+        params["layers"] = {"moe": _moe_block_shapes(cfg, meta, (n_super,))}
+        if P > 1:
+            params["layers"]["dense"] = _dense_block_shapes(
+                cfg, meta, (n_super, P - 1))
     else:
         params["layers"] = _dense_block_shapes(cfg, meta, (cfg.num_layers,))
     return params
@@ -225,7 +313,52 @@ def _logits(cfg, params, x):
 
 
 def _embed(cfg, params, batch):
-    return params["embed"][batch["tokens"]]
+    x = params["embed"][batch["tokens"]]
+    if cfg.frontend != "none" and cfg.frontend_tokens \
+            and "vision_embeds" in batch:
+        ve = batch["vision_embeds"]
+        x = torch.cat([ve.to(x.dtype), x[:, ve.shape[1]:]], dim=1)
+    return x
+
+
+def _moe_attention(cfg, lp, x, *, positions, segment_ids, cache=None,
+                   cache_index=None):
+    """A moe block up to its experts: (the attention residual, the normed
+    input of the experts).  A KV cache is written in place."""
+    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    a, _ = L.attn_apply(cfg, lp["attn"], h, window=0, positions=positions,
+                        segment_ids=segment_ids, cache=cache,
+                        cache_index=cache_index)
+    x = x + a
+    return x, L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+
+
+def _apply_moe_block(cfg, lp, x, *, positions, segment_ids, cache,
+                     cache_index, moe_groups):
+    """One moe block: attention, then the routed experts (and the shared
+    expert) on the normed residual.  With a cache, the router tally it
+    carries is passed to ``moe_apply`` and comes back updated in the new
+    cache, the KV written in place.  Returns (x, cache, aux)."""
+    if cache is None:
+        x, h = _moe_attention(cfg, lp, x, positions=positions,
+                              segment_ids=segment_ids)
+        ffn, aux = moe_mod.moe_apply(cfg, lp["moe"], h, groups=moe_groups)
+        return x + _shared(cfg, lp, h, ffn), None, aux
+    kv = {"k": cache["k"], "v": cache["v"]}
+    x, h = _moe_attention(cfg, lp, x, positions=positions,
+                          segment_ids=segment_ids, cache=kv,
+                          cache_index=cache_index)
+    ffn, aux, counts = moe_mod.moe_apply(
+        cfg, lp["moe"], h, groups=moe_groups,
+        router_counts=cache["router_counts"], capacity_len=kv["k"].shape[1])
+    return x + _shared(cfg, lp, h, ffn), dict(kv, router_counts=counts), aux
+
+
+def _shared(cfg, lp, h, ffn):
+    """The routed experts' output plus the shared expert's, if any."""
+    if "shared_mlp" in lp:
+        return ffn + L.mlp_apply(cfg, lp["shared_mlp"], h)
+    return ffn
 
 
 def _forward_dense(cfg, params, batch, caches, cache_index):
@@ -311,24 +444,66 @@ def _forward_hybrid(cfg, params, batch, caches, cache_index):
                "tail": _stack_caches(new_t) if tail else None}
 
 
+def _forward_moe(cfg, params, batch, caches, cache_index, moe_groups):
+    """The moe trunk (``_forward_moe`` of the JAX package, its scan a
+    Python loop); with caches, the dense blocks' KV and the moe blocks'
+    written in place and the new router tallies."""
+    x = _embed(cfg, params, batch)
+    positions = batch.get("positions")
+    segment_ids = batch.get("segment_ids")
+    P, n_super = moe_split(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    counts = []
+    for i in range(n_super):
+        sup = _layer(params["layers"], i)
+        for j in range(P - 1):
+            cache = None
+            if caches is not None:
+                cache = {k: caches["dense"][k][i, j] for k in ("k", "v")}
+            x, _ = _apply_dense_block(
+                cfg, _layer(sup["dense"], j), x, window=0,
+                positions=positions, segment_ids=segment_ids, cache=cache,
+                cache_index=cache_index)
+        cache = None
+        if caches is not None:
+            cache = {k: v[i] for k, v in caches["moe"].items()}
+        x, cache, aux_l = _apply_moe_block(
+            cfg, sup["moe"], x, positions=positions, segment_ids=segment_ids,
+            cache=cache, cache_index=cache_index, moe_groups=moe_groups)
+        aux = aux + aux_l
+        if cache is not None:
+            counts.append(cache["router_counts"])
+    if caches is None:
+        return x, aux, None
+    new = dict(caches)
+    new["moe"] = dict(caches["moe"], router_counts=torch.stack(counts))
+    return x, aux, new
+
+
 def apply(cfg: ModelConfig, params, batch, *, caches=None, cache_index=None,
-          last_only: bool = False):
+          last_only: bool = False, moe_groups: int = 0):
     """Forward pass.  batch: tokens (B, S) and optional positions,
-    segment_ids (B, S) (the ssm family reads neither).  Attention caches
-    are written in place at ``cache_index``; ssm caches are not written,
-    and the new ones come back.  last_only=True projects only the final
-    position to logits.  Returns (logits, aux, caches); aux is 0.0 for
-    every ported family."""
+    segment_ids (B, S) (the ssm family reads neither) and vision_embeds.
+    Attention caches are written in place at ``cache_index``; ssm caches
+    are not written, nor are the moe family's router tallies, and the new
+    ones come back.  last_only=True projects only the final position to
+    logits.  ``moe_groups``: the moe family's dispatch groups (0 = one per
+    batch row).  Returns (logits, aux, caches); aux is the moe family's
+    summed router loss (a tensor), 0.0 for the other families."""
     _require_ported(cfg)
+    aux = 0.0
     if cfg.family == "ssm":
         x, caches = _forward_ssm(cfg, params, batch, caches)
     elif cfg.family == "hybrid":
         x, caches = _forward_hybrid(cfg, params, batch, caches, cache_index)
+    elif is_moe(cfg):
+        x, aux, caches = _forward_moe(cfg, params, batch, caches,
+                                      cache_index, moe_groups)
     else:
         x = _forward_dense(cfg, params, batch, caches, cache_index)
     if last_only:
         x = x[:, -1:]
-    return _logits(cfg, params, x), 0.0, caches
+    return _logits(cfg, params, x), aux, caches
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -337,8 +512,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     hd); ssm {"conv": (L, B, W-1, conv_dim) in ``dtype``, "ssm": (L, B, h,
     p, n) float32}, broadcast views of one layer's zeros (``apply`` never
     writes an ssm cache); hybrid {"mamba": ssm's at (n_super, P), "attn":
-    dense's at (n_super,), "tail": ssm's at (tail,) or None}."""
+    dense's at (n_super,), "tail": ssm's at (tail,) or None}; moe
+    {"moe": dense's at (n_super,) and "router_counts" (n_super, B, k, E)
+    int32 zeros, "dense": dense's at (n_super, P-1) when P > 1}."""
     _require_ported(cfg)
+    if is_moe(cfg):
+        P, n_super = moe_split(cfg)
+        moe = _attn_cache(cfg, (n_super,), batch, max_len, dtype, device)
+        moe["router_counts"] = torch.zeros(
+            (n_super, batch, cfg.experts_per_token, cfg.num_experts),
+            dtype=torch.int32, device=device)
+        caches = {"moe": moe}
+        if P > 1:
+            caches["dense"] = _attn_cache(cfg, (n_super, P - 1), batch,
+                                          max_len, dtype, device)
+        return caches
     if cfg.family in ("ssm", "hybrid"):
         base = ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
         mamba = lambda *pre: {k: v.expand(pre + v.shape)
@@ -368,10 +556,11 @@ def _identity(trees):
 
 def forward_ranks(cfg: ModelConfig, params_list, batches, *,
                   remat: bool = False, pxform=None, prefetch=None,
-                  cp: int = 1):
+                  cp: int = 1, moe_groups: int = 0, ep: bool = False):
     """Final hidden states of several ranks' batches, run in lockstep layer
     by layer (no caches): the training forward, ``_forward_dense`` of the
-    JAX package for each rank.
+    JAX package for each rank.  Returns (top-level trees, hidden states,
+    aux losses), one of each per rank.
 
     ``cp`` > 1: the ranks are cp groups of ``cp`` adjacent ranks, each
     rank's batch one sequence shard of its group's rows (in the
@@ -400,7 +589,16 @@ def forward_ranks(cfg: ModelConfig, params_list, batches, *,
     gathered once per forward for its n_super invocations) and each mamba
     block's slice; ``prefetch`` walks the super-layers, each issued whole,
     and the tail's blocks go through ``pxform``; ``remat`` recomputes
-    each super-layer and each tail block."""
+    each super-layer and each tail block.
+
+    The moe family steps through its super-layers (``_moe_ranks``):
+    ``pxform`` sees each dense block's and each moe block's slice, and
+    ``prefetch`` walks the super-layers, each issued whole (the JAX
+    ``pbody``).  ``moe_groups`` are its dispatch groups; ``ep``: weight-
+    stationary expert parallelism, each rank's tree holding its E/n
+    experts (not gathered) and the moe blocks exchanging dispatch buffers
+    across the ranks (``moe.moe_apply_ep``) in place of running every
+    expert on every rank."""
     _require_ported(cfg)
     if cp > 1:
         require_cp(cfg)
@@ -409,9 +607,16 @@ def forward_ranks(cfg: ModelConfig, params_list, batches, *,
     tops = px([{k: v for k, v in p.items() if k not in trunk}
                for p in params_list])
     xs = [_embed(cfg, t, b) for t, b in zip(tops, batches)]
+    if is_moe(cfg):
+        xs, auxs = _moe_ranks(cfg, params_list, xs, batches, remat=remat,
+                              px=px, prefetch=prefetch,
+                              moe_groups=moe_groups, ep=ep)
+        return tops, xs, auxs
+    zeros = [0.0] * len(xs)
     if cfg.family == "hybrid":
         return tops, _hybrid_ranks(cfg, params_list, tops, xs, batches,
-                                   remat=remat, px=px, prefetch=prefetch)
+                                   remat=remat, px=px,
+                                   prefetch=prefetch), zeros
 
     def blocks(i, xs, full):
         if cfg.family == "ssm":
@@ -431,12 +636,13 @@ def forward_ranks(cfg: ModelConfig, params_list, batches, *,
 
     if prefetch is not None:
         return tops, prefetch_scan(blocks, xs, layer_trees, cfg.num_layers,
-                                   prefetch, remat=remat)
+                                   prefetch, remat=remat), zeros
 
     def body(i, xs, trees):
         return blocks(i, xs, px(trees))
 
-    return tops, _layer_loop(body, xs, layer_trees, cfg.num_layers, remat)
+    return tops, _layer_loop(body, xs, layer_trees, cfg.num_layers,
+                             remat), zeros
 
 
 def _layer_loop(body, xs, layer_trees, num_layers, remat):
@@ -489,7 +695,61 @@ def _hybrid_ranks(cfg, params_list, tops, xs, batches, *, remat, px,
         remat)
 
 
-def _loss_from_hidden(cfg, top, x, batch, reduction):
+def _moe_blocks(cfg, lps, xs, batches, *, moe_groups, ep):
+    """One moe block over every rank: per rank without ``ep``; with it,
+    attention per rank and the experts through the exchange.  Returns
+    (xs, auxs)."""
+    if not ep:
+        outs = [_apply_moe_block(
+            cfg, lp, x, positions=b.get("positions"),
+            segment_ids=b.get("segment_ids"), cache=None, cache_index=None,
+            moe_groups=moe_groups) for lp, x, b in zip(lps, xs, batches)]
+        return [o[0] for o in outs], [o[2] for o in outs]
+    mids, hs = zip(*[_moe_attention(cfg, lp, x, positions=b.get("positions"),
+                                    segment_ids=b.get("segment_ids"))
+                     for lp, x, b in zip(lps, xs, batches)])
+    ffns, auxs = moe_mod.moe_apply_ep(cfg, [lp["moe"] for lp in lps], hs)
+    return ([x + _shared(cfg, lp, h, f)
+             for lp, x, h, f in zip(lps, mids, hs, ffns)], auxs)
+
+
+def _moe_ranks(cfg, params_list, xs, batches, *, remat, px, prefetch,
+               moe_groups, ep):
+    """The moe trunk of every rank in lockstep: per super-layer its P-1
+    dense blocks, then its moe block, each block's slice through ``px``
+    unless the super-layer comes materialized from ``prefetch``; the aux
+    losses summed over the moe blocks.  The carry is (xs, auxs)."""
+    P, n_super = moe_split(cfg)
+
+    def super_layer(i, carry, sups, gather):
+        xs, auxs = carry
+        for j in range(P - 1):
+            subs = [_layer(t["dense"], j) for t in sups]
+            xs = [_apply_dense_block(
+                cfg, lp, x, window=0, positions=b.get("positions"),
+                segment_ids=b.get("segment_ids"), cache=None,
+                cache_index=None)[0]
+                for lp, x, b in zip(px(subs) if gather else subs, xs,
+                                    batches)]
+        moes = [t["moe"] for t in sups]
+        xs, more = _moe_blocks(cfg, px(moes) if gather else moes, xs,
+                               batches, moe_groups=moe_groups, ep=ep)
+        return xs, [a + m for a, m in zip(auxs, more)]
+
+    def super_trees(i):
+        return [_layer(p["layers"], i) for p in params_list]
+
+    carry = (xs, [torch.zeros((), dtype=torch.float32, device=x.device)
+                  for x in xs])
+    if prefetch is not None:
+        return prefetch_scan(
+            lambda i, c, full: super_layer(i, c, full, False), carry,
+            super_trees, n_super, prefetch, remat=remat)
+    return _layer_loop(lambda i, c, sups: super_layer(i, c, sups, True),
+                       carry, super_trees, n_super, remat)
+
+
+def _loss_from_hidden(cfg, top, x, batch, reduction, aux=0.0):
     logits = _logits(cfg, top, x).float()
     targets = batch["targets"].long()
     mask = batch.get("loss_mask")
@@ -501,31 +761,36 @@ def _loss_from_hidden(cfg, top, x, batch, reduction):
     nll = (logz - tgt) * mask
     tokens = mask.abs().sum()
     if reduction == "sum":
-        total = nll.sum()
-        return total, {"ce_sum": total, "aux": 0.0, "tokens": tokens}
+        nll_sum = nll.sum()
+        total = nll_sum + aux * torch.clamp(tokens, min=1.0)
+        return total, {"ce_sum": nll_sum, "aux": aux, "tokens": tokens}
     ce = nll.sum() / torch.clamp(tokens, min=1.0)
-    return ce, {"ce": ce, "aux": 0.0, "tokens": tokens}
+    return ce + aux, {"ce": ce, "aux": aux, "tokens": tokens}
 
 
 def loss_ranks(cfg: ModelConfig, params_list, batches, *,
                remat: bool = False, pxform=None, prefetch=None,
-               reduction: str = "mean", cp: int = 1):
+               reduction: str = "mean", cp: int = 1, moe_groups: int = 0,
+               ep: bool = False):
     """``loss`` of several ranks' batches in one lockstep forward (see
     ``forward_ranks``); returns one (loss, metrics) per rank."""
-    tops, xs = forward_ranks(cfg, params_list, batches, remat=remat,
-                             pxform=pxform, prefetch=prefetch, cp=cp)
-    return [_loss_from_hidden(cfg, t, x, b, reduction)
-            for t, x, b in zip(tops, xs, batches)]
+    tops, xs, auxs = forward_ranks(cfg, params_list, batches, remat=remat,
+                                   pxform=pxform, prefetch=prefetch, cp=cp,
+                                   moe_groups=moe_groups, ep=ep)
+    return [_loss_from_hidden(cfg, t, x, b, reduction, a)
+            for t, x, b, a in zip(tops, xs, batches, auxs)]
 
 
 def loss(cfg: ModelConfig, params, batch, *, remat: bool = False,
-         reduction: str = "mean"):
+         reduction: str = "mean", moe_groups: int = 0):
     """Weighted token cross-entropy (weights = ``loss_mask``; signed
     weights carry advantages), ``repro.models.transformer.loss``.
 
     reduction='sum' returns the un-normalized nll sum, which the FSDP
     engines accumulate across microbatches before normalizing by the
     global token count.  Returns (loss, metrics) with metrics["tokens"] =
-    sum |loss_mask|.  The dense family has no auxiliary loss."""
+    sum |loss_mask|.  The router aux loss is added as the reference adds
+    it: ``nll_sum + aux * max(tokens, 1)`` for 'sum', ``ce + aux`` for
+    'mean', with ``aux`` in the metrics (0.0 for every family but moe)."""
     return loss_ranks(cfg, [params], [batch], remat=remat,
-                      reduction=reduction)[0]
+                      reduction=reduction, moe_groups=moe_groups)[0]

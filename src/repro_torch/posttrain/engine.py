@@ -5,9 +5,11 @@ admission, retirement, stop and version-pinning semantics.
 ``GenerationEngine``
     wave-at-a-time: one fixed batch prefilled together, decoded in
     lockstep to the longest request; ``generate(stop_lengths=...)``
-    truncates each request at its own total length.  Dense, ssm and
+    truncates each request at its own total length, and
+    ``generate(batch_extras=...)`` adds entries (the vision stub's
+    ``vision_embeds``) to the prefill batch.  Dense, vlm, moe, ssm and
     hybrid families; each step carries on with the cache the step
-    returns.
+    returns (the moe family's router tallies among it).
 
 ``ContinuousGenerationEngine``
     continuous (in-flight) batching: a request queue feeds ``slots``
@@ -86,15 +88,20 @@ class GenerationEngine:
         return self._decode(params, cache, tokens, index)
 
     def generate(self, params, prompt_tokens, gen_steps: int, *,
+                 batch_extras: Optional[Dict] = None,
                  stop_lengths: Optional[Sequence[int]] = None
                  ) -> GenerationResult:
         """Greedy-decode ``gen_steps`` tokens for a (B, S) prompt batch.
 
+        batch_extras  entries merged into the prefill batch (the stub
+                      frontend's ``vision_embeds``, (B, n, d)).
         stop_lengths  per-request TOTAL sequence length (prompt included);
                       request i's sequence is truncated there.  None =
                       every request runs to S + gen_steps.
         """
         batch = self.prompt_batch(prompt_tokens)
+        if batch_extras:
+            batch.update(batch_extras)
         B, S = batch["tokens"].shape
         max_len = S + gen_steps
         cache = self.init_cache(B, max_len)

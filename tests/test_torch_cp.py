@@ -21,8 +21,9 @@
 * ``Trainer(comm='cp')`` on reduced qwen against ``gspmd.make_train_step``
   on ``make_cp_mesh(cp=2, data=d)`` (lb_token plans, minibatch and layer
   schedules): three steps, losses within 1e-5 relative (the reason is in
-  ``tests/test_torch_train.py``), tokens equal; and against the port's
-  flat ODC on the same global batch.
+  ``tests/test_torch_train.py``), tokens equal; the same for reduced
+  chameleon-34b (the vlm family, qk-norm) at data 1, minibatch; and
+  against the port's flat ODC on the same global batch.
 * Save then resume under cp is bitwise; the train CLI runs cp on the CPU and
   refuses cp under the overlap schedule.
 """
@@ -330,6 +331,35 @@ def test_three_step_losses_match_the_jax_cp_engine(jax_model, data,
         assert float(tm["tokens"]) == float(jm["tokens"])
         split += len(b["plan"].cp_split)
     assert split > 0  # the run cut a sample across its group
+
+
+def test_three_step_losses_of_chameleon_match_the_jax_cp_engine():
+    """The vlm family under cp (chameleon: no vision stub, its image codes
+    are tokens): reduced chameleon-34b, data 1 x cp 2, minibatch."""
+    arch = "chameleon-34b"
+    cfg = jconfigs.get_reduced(arch)
+    params = JT.init_params(cfg, jax.random.PRNGKey(0))
+    mesh = make_cp_mesh(cp=2, data=1, model=1)
+    rep = NamedSharding(mesh, P())
+    step = jax.jit(make_train_step(cfg, mesh, GSPMDConfig(
+        rules=ShardingRules(data=("data", "cp")), comm="cp",
+        schedule="minibatch", block_kv=MAX_TOKENS), JAdamW(lr=LR)),
+        out_shardings=rep)
+    tr = Trainer(get_reduced(arch), RankGroup.make(2, "cpu"), comm="cp",
+                 schedule="minibatch", opt_cfg=AdamWConfig(lr=LR), cp=2)
+    shards, opt = _state((cfg, params), tr)
+    jp, jo = jax.device_put((params, jinit(params)), rep)
+    for a, b in zip(_loader(JLoader, 2).steps(3),
+                    _loader(SyntheticSFTLoader, 2).steps(3)):
+        with mesh:
+            jp, jo, jm = step(jp, jo, jbuild(a["plan"], a["sample_tokens"],
+                                             MAX_TOKENS))
+        batch = build_minibatch(b["plan"], b["sample_tokens"], MAX_TOKENS)
+        shards, opt, tm = tr.step(shards, opt, batch,
+                                  [len(x) for x in b["plan"].assignments])
+        ref = float(jm["loss"])
+        assert abs(float(tm["loss"]) - ref) <= LOSS_RTOL * abs(ref)
+        assert float(tm["tokens"]) == float(jm["tokens"])
 
 
 def test_cp_matches_flat_odc_on_the_same_batch(jax_model):

@@ -20,7 +20,10 @@ card against the CPU; the gather_matmul kernel on each of its routes
 (f32 within 1e-5 of max |plain|, bf16 within 1e-2), each hop kept to
 its own shard's columns of x, and its refusals; and
 reduced zamba2 (5 layers: a tail, two invocations of the shared block)
-serve and train runs on the card against the CPU.  Each test needs an NVIDIA GPU and
+serve and train runs on the card against the CPU; and reduced grok-1 (the
+moe family) prefill and decode on the flash kernel against the plain
+attention route under the routing rule, and one ODC x minibatch step
+against collective x layer.  Each test needs an NVIDIA GPU and
 skips without one.
 
 This file imports no jax, so it runs on a machine that has only PyTorch:
@@ -34,11 +37,19 @@ flash gradient, kernel route against plain route, 1e-4 in f32 (the
 backward's T-term sums in another order).  The rings: bitwise (they move
 data, and the scatter adds in the plain ring's hop order).
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 pytestmark = pytest.mark.cuda
 
@@ -1333,3 +1344,85 @@ def test_reduced_hybrid_train_steps_on_card_match_cpu(cuda, comm, schedule):
         assert all((a > b) == (dev == "cuda") for a, b in zip(after, before))
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-5 * abs(b), (losses["cuda"], losses["cpu"])
+
+
+# ===========================================================================
+# the moe family (grok-1)
+# ===========================================================================
+def test_reduced_moe_serve_on_card_matches_plain_route(cuda):
+    """Reduced grok-1 (2 moe layers, 4 experts top-2) prefill and one
+    decode step with the router tallies on the card, on the flash kernel
+    and on the plain attention route, same weights: the routing held by
+    ``moe.routing_rule`` (``chip_smoke._hold_routing``, which fails on a
+    fault), then the logits of the rows with no near-tie
+    within 1e-5 of 1 + |plain|, and the tallies equal."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    from repro_torch.posttrain.engine import GenerationEngine
+
+    cfg = get_reduced("grok-1-314b")
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(1, cfg.vocab_size, (4, 40),
+                           generator=torch.Generator().manual_seed(1))
+    eng = GenerationEngine(cfg, device="cuda")
+    out, calls = {}, {}
+    for route in ("kernel", "plain"):
+        prev = layers.set_attention_impl(
+            fa.flash_attention_plain if route == "plain" else None)
+        before = fa.launches
+        try:
+            with chip_smoke._Routing() as rec:
+                logits, cache = eng.prefill(
+                    params, eng.prompt_batch(tokens), eng.init_cache(4, 48))
+                nxt = logits[:, -1].argmax(-1)[:, None]
+                logits2, cache = eng.decode(params, cache, nxt, 40)
+        finally:
+            layers.set_attention_impl(prev)
+        assert fa.launches - before == (2 * 2 if route == "kernel" else 0)
+        out[route] = (torch.cat([logits, logits2], 1),
+                      cache["moe"]["router_counts"])
+        calls[route] = rec.calls
+    ok = chip_smoke._hold_routing("reduced grok-1", calls["plain"],
+                                  calls["kernel"], 4).to(cuda)
+    assert ok.any()
+    got, want = out["kernel"][0][ok], out["plain"][0][ok]
+    err = (got - want).abs()
+    assert (err <= 1e-5 * (1 + want.abs())).all(), float(err.max())
+    if ok.all():  # no near-tie: every token went where it went before
+        assert torch.equal(out["kernel"][1], out["plain"][1])
+
+
+def test_reduced_moe_odc_step_matches_collective_on_card(cuda):
+    """One reduced grok-1 train step with two ranks on the card, ODC x
+    minibatch (ring kernels) against collective x layer: the step-0 losses
+    equal (the same forward) and the gradient norms within 1e-5."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.ranks import RankGroup
+    from repro_torch.core.train_step import Trainer
+    from repro_torch.data.loader import SyntheticSFTLoader
+    from repro_torch.data.packing import build_minibatch
+    from repro_torch.kernels import odc_gather as KG
+    from repro_torch.models import transformer as T
+
+    cfg = get_reduced("grok-1-314b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    loader = SyntheticSFTLoader("longalign", vocab_size=cfg.vocab_size,
+                                world_size=2, minibatch_per_device=2,
+                                max_tokens=128, max_len=120, seed=0)
+    sd = next(loader.steps(1))
+    batch = build_minibatch(sd["plan"], sd["sample_tokens"], 128)
+    counts = [len(a) for a in sd["plan"].assignments]
+    res = {}
+    for comm, schedule in (("collective", "layer"), ("odc", "minibatch")):
+        tr = Trainer(cfg, RankGroup.make(2, "cuda"), comm=comm,
+                     schedule=schedule)
+        shards, opt = tr.init_state(_to(params, "cuda"))
+        before = KG.launches, fa.launches
+        _, _, m = tr.step(shards, opt, batch, counts)
+        res[comm] = (float(m["loss"]), float(m["grad_norm"]))
+        assert fa.launches > before[1]
+        assert (KG.launches > before[0]) == (comm == "odc")
+    (la, na), (lb, nb) = res["collective"], res["odc"]
+    assert la == lb, res
+    assert abs(na - nb) <= 1e-5 * nb, res

@@ -4,7 +4,10 @@ Layer by layer (``rms_norm``, ``apply_rope``, ``mlp_apply``, ``attn_apply``
 with no cache, a scalar cache index and a per-row cache index) and whole
 ``transformer.apply`` logits, for reduced qwen-1.5b and reduced gemma2-9b
 (sliding window on alternate layers, attention and final soft-capping,
-GeGLU), plus one case at qwen-1.5b's full widths with 2 layers and the
+GeGLU), gemma3-27b at 6 layers (five ``local`` with window 64, then one
+``global``: its 5:1 pattern whole, and 80 tokens so that the window cuts),
+phi3-medium-14b, minitron-8b and chameleon-34b (the vlm family: qk-norm),
+plus one case at qwen-1.5b's full widths with 2 layers and the
 vocabulary cut to 4096.  The JAX weights cross over through
 ``repro_torch.bridge``; inputs are numpy arrays from a seed.  The JAX side
 runs its default attention (the jnp ``blockwise_attention``), the port's
@@ -32,10 +35,12 @@ from repro_torch import bridge
 from repro_torch import configs as tconfigs
 from repro_torch.models import layers as tl
 from repro_torch.models import transformer as TT
+from torch_train_cases import reduced_case
 
 TOL = 1e-5
 TOL_FULL = 5e-5
-ARCHS = ("qwen-1.5b", "gemma2-9b")
+ARCHS = ("qwen-1.5b", "gemma2-9b", "gemma3-27b", "phi3-medium-14b",
+         "minitron-8b", "chameleon-34b")
 
 
 def _close(out, ref, tol=TOL):
@@ -49,7 +54,7 @@ def _close(out, ref, tol=TOL):
 
 @pytest.fixture(scope="module", params=ARCHS)
 def model(request):
-    cfg = jconfigs.get_reduced(request.param)
+    cfg = reduced_case(request.param)[0]
     params = JT.init_params(cfg, jax.random.PRNGKey(0))
     tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, params),
                                        "cpu")

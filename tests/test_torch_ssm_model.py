@@ -288,7 +288,7 @@ def test_context_parallelism_refuses_the_family(model):
 
 
 def test_other_families_stay_refused():
-    for arch in ("chameleon-34b", "llama4-maverick-400b-a17b"):
+    for arch in ("seamless-m4t-medium",):  # audio: the family left
         cfg = get_reduced(arch)
         for call in (lambda: TT.init_params(cfg, torch.Generator()),
                      lambda: TT.param_shapes(cfg),

@@ -12,7 +12,8 @@ with every rank on the CPU), the cases of ``tests/torch_train_cases.py``.
   about 1e-6 of the leaf's scale), while a wrong gradient (a rank, a layer
   or the normalization missing) is off by O(1) of it.
 * The step's gradient norm before clipping, and ``transformer.loss`` and
-  its gradients on one microbatch (qwen and gemma2).
+  its gradients on one microbatch (qwen, gemma2, gemma3 at 6 layers, phi3,
+  minitron and chameleon).
 """
 import os
 
@@ -30,7 +31,7 @@ from repro_torch.configs import get_reduced
 from repro_torch.core import fsdp
 from torch_train_cases import (GRAD_TOL, PAIRS, _get, _state,  # noqa: F401
                                _steps, _trainer, global_mean_grad,
-                               jax_model, one_torch_thread)
+                               jax_model, one_torch_thread, reduced_case)
 
 
 @pytest.fixture(scope="module", params=[2, 4])
@@ -86,9 +87,25 @@ def test_loss_and_gradients_match(arch, remat, reduction):
     on one packed microbatch (gemma2: sliding window on alternate layers,
     attention and final soft-capping).  Same leaf-scaled tolerance as the
     train-step gradients; the loss within 1e-6 relative."""
+    _loss_and_gradients(jconfigs.get_reduced(arch), get_reduced(arch),
+                        remat, reduction)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "phi3-medium-14b",
+                                  "minitron-8b", "chameleon-34b"])
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("reduction", ["sum", "mean"])
+def test_loss_and_gradients_match_other_dense_configs(arch, remat,
+                                                      reduction):
+    """The same for the other dense configs and the vlm family's
+    chameleon (qk-norm); gemma3 at 6 layers, five ``local`` and one
+    ``global``, so that its 5:1 pattern runs whole."""
+    _loss_and_gradients(*reduced_case(arch), remat, reduction)
+
+
+def _loss_and_gradients(cfg, tcfg, remat, reduction):
     from repro_torch.models import transformer as TT
 
-    cfg = jconfigs.get_reduced(arch)
     params = JT.init_params(cfg, jax.random.PRNGKey(1))
     jb, tb, _ = _steps(2, 1)[0]
     mb = {k: v[0, 0:1] for k, v in jb.items()}
@@ -100,8 +117,7 @@ def test_loss_and_gradients_match(arch, remat, reduction):
         fsdp.get(tp, path).requires_grad_(True)
     tmb = {k: torch.from_numpy(np.ascontiguousarray(v[0, 0:1]))
            for k, v in tb.items()}
-    ours, tm = TT.loss(get_reduced(arch), tp, tmb, remat=remat,
-                       reduction=reduction)
+    ours, tm = TT.loss(tcfg, tp, tmb, remat=remat, reduction=reduction)
     ours.backward()
     assert float(tm["tokens"]) == float(jm["tokens"])
     assert abs(ours.item() - float(ref)) <= 1e-6 * abs(float(ref))
@@ -109,4 +125,5 @@ def test_loss_and_gradients_match(arch, remat, reduction):
         keys = tuple(k.key for k in path)
         g = np.asarray(g)
         err = np.abs(fsdp.get(tp, keys).grad.numpy() - g).max()
-        assert err <= GRAD_TOL * np.abs(g).max(), (arch, keys, float(err))
+        assert err <= GRAD_TOL * np.abs(g).max(), (cfg.name, keys,
+                                                     float(err))

@@ -28,6 +28,9 @@ from repro_torch.data.packing import build_minibatch
 from repro_torch.optim.adamw import AdamWConfig
 
 ARCH = "qwen-1.5b"
+#: layers of a parity case whose reduced config's 2 would not hold its
+#: whole attention pattern (gemma3: five local layers, then a global one)
+CASE_LAYERS = {"gemma3-27b": 6}
 GRAD_TOL = 1e-4
 LOSS_RTOL = 1e-5
 LR = 1e-3
@@ -107,3 +110,15 @@ def _get(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+def reduced_case(arch):
+    """(JAX config, port config) of a parity case: each package's reduced
+    ``arch``, at CASE_LAYERS' depth where it names one."""
+    from repro.models.config import reduced as jreduced
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import reduced
+
+    n = CASE_LAYERS.get(arch, 2)
+    return (jreduced(jconfigs.get_config(arch), num_layers=n),
+            reduced(get_config(arch), num_layers=n))
