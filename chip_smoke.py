@@ -47,7 +47,16 @@ routing rule of ``repro_torch.models.moe.routing_rule``; a decode-step
 profile), reduced grok-1 and llama4-maverick trained with two ranks as
 collective x layer, ODC x minibatch and odc-overlap and with
 weight-stationary experts (one profiled step), and chameleon-34b at its
-published widths trained with 1 of 48 layers and served with 4.
+published widths trained with 1 of 48 layers and served with 4.  The
+audio family: the flash kernel at seamless-m4t-medium's encoder and
+cross-attention shapes (non-causal, S != T, no segment ids; the cross
+decode on the decode path), seamless-m4t-medium served at full width and
+depth (12 + 12 layers; the prefill on the kernel and on the plain
+attention route, and prefill of S-1 tokens plus one decode step from the
+cached encoder output against the full forward; a decode-step profile)
+and trained at full width and depth with two ranks as collective x
+layer, ODC x minibatch and odc-overlap (two chained trunks; one profiled
+step).
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -270,6 +279,15 @@ CHAMELEON = "chameleon-34b"
 GROK_SERVE_LAYERS = 2
 CHAMELEON_TRAIN_LAYERS = 1
 CHAMELEON_SERVE_LAYERS = 4
+# The audio family: seamless-m4t-medium at its published widths and depth
+# (12 encoder and 12 decoder layers, 16/16 heads of 64, 614,739,968
+# parameters, 2.46 GB in f32), served with WAVE's settings and as many
+# encoder frames as prompt tokens (the JAX serve driver's enc_len = S),
+# trained with TRAIN's batches and 16 frames a microbatch row (the train
+# driver's stub).  Two ranks hold about 17 GB of weights, AdamW state,
+# gathered copies and gradients, and a 4096-token microbatch's logits over
+# the 256,206-token tied vocabulary 4.2 GB each: full depth fits the card.
+SEAMLESS = "seamless-m4t-medium"
 
 
 def fail(msg: str):
@@ -336,11 +354,14 @@ def phase_build():
 # phase 3: each kernel against its plain version on the card
 # ---------------------------------------------------------------------------
 def _attn_case(B, S, T, H, KH, hd, dtype, *, seed, q_pos=None, kv_valid=None,
-               packed=False, causal=True, window=0, softcap=0.0):
+               packed=False, q_packed=False, causal=True, window=0,
+               softcap=0.0):
     """Inputs of one attention call.  q_pos: (B,) first query position of
     each row (decode: the cache index); kv_valid: (B,) last written cache
     position, later positions arrive as -1e9 like the serve path's
-    masked cache tail."""
+    masked cache tail; q_packed: q positions of a packed train row
+    (``_packed_positions``) and no segment ids, as the decoder's cross-
+    attention takes them."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     q = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
@@ -365,7 +386,22 @@ def _attn_case(B, S, T, H, KH, hd, dtype, *, seed, q_pos=None, kv_valid=None,
                                            dtype=torch.int32)
         kw.update(q_positions=pos, kv_positions=pos, q_segment_ids=seg,
                   kv_segment_ids=seg)
+    if q_packed:
+        kw["q_positions"] = _packed_positions(S).expand(B, S).contiguous()
     return q, k, v, kw
+
+
+def _packed_positions(S):
+    """(1, S) int32 positions of a packed train row of three LongAlign-like
+    samples and a padding tail (1500/1800/500 tokens of 4096, scaled to
+    S), as ``data.packing.pack_sequences`` lays them out: positions
+    restart per sample, the padding sits at position 0."""
+    from repro_torch.data.packing import pack_sequences
+    import numpy as np
+
+    lens = [max(1, n * S // 4096) for n in (1500, 1800, 500)]
+    row = pack_sequences([np.zeros(n, np.int32) for n in lens], S)
+    return torch.from_numpy(row["positions"])[None].cuda()
 
 
 # name -> (B, S, T, H, KH, hd, options); H 12 / KH 2 / hd 128 is qwen's
@@ -390,6 +426,17 @@ ATTN_CASES = {
                              {"kv_valid": [511] * 8}),
     "zamba2 serve decode": (8, 1, 544, 32, 32, 64,
                             {"q_pos": [527] * 8, "kv_valid": [527] * 8}),
+    # seamless-m4t-medium: 16 heads of 64 over 16 KV heads (MHA), every
+    # call non-causal with no segment ids: the encoder's self-attention
+    # over 512 serve frames, the decoder's cross-attention to them at
+    # prefill (512 x 512) and decode (1 x 512), and in training (a
+    # 4096-token packed row x 16 frames)
+    "seamless encoder serve": (8, 512, 512, 16, 16, 64, {"causal": False}),
+    "seamless cross prefill": (8, 512, 512, 16, 16, 64, {"causal": False}),
+    "seamless cross decode": (8, 1, 512, 16, 16, 64,
+                              {"q_pos": [527] * 8, "causal": False}),
+    "seamless train cross": (1, 4096, 16, 16, 16, 64,
+                             {"q_packed": True, "causal": False}),
 }
 
 
@@ -453,6 +500,7 @@ DECODE_CASES = {
                                      "softcap": 30.0}),
     "16 rows hd32": (2, 16, 700, 2, 2, 32, {"q_pos": [600, 10],
                                             "kv_valid": [615, 25]}),
+    "seamless cross decode": ATTN_CASES["seamless cross decode"],
 }
 
 
@@ -512,6 +560,7 @@ GRAD_CASES = {
     "window+softcap hd256": (2, 64, 64, 4, 2, 256,
                              {"window": 24, "softcap": 50.0}),
     "non-causal hd32": (2, 33, 33, 4, 1, 32, {"causal": False}),
+    "seamless train cross": ATTN_CASES["seamless train cross"],
 }
 
 
@@ -2339,6 +2388,175 @@ def phase_chameleon() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4s: the audio family: seamless-m4t-medium served and trained at
+# full width and depth
+# ---------------------------------------------------------------------------
+def phase_seamless_serve() -> dict:
+    """seamless-m4t-medium through the serve entry point (wave, 512
+    frames a request); then the prefill on the kernel and on the plain
+    attention route, and prefill of S-1 tokens plus one decode step from
+    the cached encoder output against the full forward's last logits; a
+    decode-step profile."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve, train
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(SEAMLESS)
+    n = _num_params(cfg)
+    Le, Ld = cfg.num_encoder_layers, cfg.num_layers
+    log(f"serve {SEAMLESS}: full width and depth, {Le} encoder and {Ld} "
+        f"decoder layers ({n:,} parameters, {n * 4 / 1e9:.2f} GB in f32; "
+        f"ModelConfig.num_params() says {cfg.num_params():,})")
+    args = serve.parse_args([
+        "--arch", SEAMLESS, "--seed", str(SEED), "--device", "cuda",
+        "--dtype", "float32", "--batch", str(WAVE["batch"]), "--prompt-len",
+        str(WAVE["prompt_len"]), "--gen", str(WAVE["gen"])])
+    torch.cuda.reset_peak_memory_stats()
+    train.reset_launches()
+    summary = serve.run(args)
+    torch.cuda.synchronize()
+    got = train.read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    calls, steps = summary["prefill_calls"], summary["decode_steps"]
+    # the prefill: every encoder layer's self-attention and every decoder
+    # layer's self- and cross-attention; a decode step: the decoder's two
+    want = calls * (Le + 2 * Ld) + steps * 2 * Ld
+    others = {k: v for k, v in got.items() if k != "flash_attention" and v}
+    log(f"serve {SEAMLESS} wave: prefill {summary['prefill_tok_s']:.1f} "
+        f"tok/s, decode {summary['decode_tok_s']:.1f} tok/s, "
+        f"flash_attention launches {got['flash_attention']} (want {calls} x "
+        f"({Le} + 2 x {Ld}) prefill + {steps} x 2 x {Ld} decode = {want}), "
+        f"other launches {others or 0}, peak memory {peak / 2 ** 30:.2f} "
+        f"GiB, first ids {summary['first_ids'][:8]}")
+    if got["flash_attention"] != want or want == 0 or others:
+        fail(f"serve {SEAMLESS}: launches {got}, want {want} attention "
+             f"calls")
+    if not summary["ids_in_vocab"]:
+        fail(f"serve {SEAMLESS}: generated ids outside the vocabulary")
+
+    cfg, params, tokens = serve.build(args)
+    engine = serve.make_engine(cfg, args)
+    B, S = tokens.shape
+    batch = dict(engine.prompt_batch(tokens),
+                 **serve.stub_extras(cfg, args, B, S))
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    if not fa.launch_plan(B, 1, S, H, KH, hd)["decode"]:
+        fail(f"{SEAMLESS}: the cross-attention of a decode step does not "
+             f"take the decode path")
+    train.reset_launches()
+    kern, cache = engine.prefill(params, batch, engine.init_cache(
+        B, S + args.gen, enc_len=S))
+    torch.cuda.synchronize()
+    per_prefill = train.read_launches()["flash_attention"]
+    prev = layers.set_attention_impl(fa.flash_attention_plain)
+    try:
+        train.reset_launches()
+        plain, _ = engine.prefill(params, batch, engine.init_cache(
+            B, S + args.gen, enc_len=S))
+        torch.cuda.synchronize()
+        plain_launches = train.read_launches()
+    finally:
+        layers.set_attention_impl(prev)
+    diff = float((kern[:, -1] - plain[:, -1]).abs().max())
+    finite = bool(torch.isfinite(kern).all())
+    log(f"{SEAMLESS} wave prefill: {per_prefill} attention calls (want "
+        f"{Le + 2 * Ld}); encoder output {tuple(cache['enc_out'].shape)} "
+        f"cached; last-position logits {tuple(kern[:, -1].shape)}, kernel "
+        f"vs plain attention max|diff| {diff:.3e} (tol {LOGITS_TOL:g}), "
+        f"finite {finite}, launches on the plain route "
+        f"{sum(plain_launches.values())}")
+    if per_prefill != Le + 2 * Ld or not finite or diff > LOGITS_TOL \
+            or any(plain_launches.values()):
+        fail(f"{SEAMLESS} prefill: kernel and plain attention routes "
+             f"disagree")
+    del plain
+
+    # prefill of S-1 tokens (with the frames) and one decode step from the
+    # cached encoder output, against the full forward's last logits
+    with torch.no_grad():
+        full, _, _ = T.apply(cfg, params, batch, last_only=True)
+    head = {k: v[:, :S - 1] for k, v in batch.items()
+            if k != "encoder_embeds"}
+    head["encoder_embeds"] = batch["encoder_embeds"]
+    inc = engine.init_cache(B, S, enc_len=S)
+    _, inc = engine.prefill(params, head, inc)
+    train.reset_launches()
+    dec, inc = engine.decode(params, inc, tokens[:, S - 1:], S - 1)
+    torch.cuda.synchronize()
+    per_decode = train.read_launches()["flash_attention"]
+    diff2 = float((dec[:, -1] - full[:, -1]).abs().max())
+    log(f"{SEAMLESS} prefill {S - 1} + 1 decode step (from the cached "
+        f"encoder output, {per_decode} attention calls, want {2 * Ld}) vs "
+        f"the full forward's last logits: max|diff| {diff2:.3e} (tol "
+        f"{LOGITS_TOL:g})")
+    if diff2 > LOGITS_TOL or per_decode != 2 * Ld \
+            or not bool(torch.isfinite(dec).all()):
+        fail(f"{SEAMLESS}: prefill plus decode differs from the full "
+             f"forward")
+    del full, dec, inc
+    tok = kern[:, -1].argmax(-1)[:, None]
+    profile = _profile_decode(engine, params, cache, tok, S)
+    del params, engine, cache, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": got, "summary": summary, "peak": peak,
+            "logits_diff": diff, "decode_diff": diff2, "profile": profile}
+
+
+def phase_seamless_train() -> dict:
+    """seamless-m4t-medium at full width and depth, 2 ranks, TRAIN's
+    batches with 16 frames a microbatch row, as collective x layer, ODC x
+    minibatch and odc-overlap, held to each other as qwen's runs are and
+    to their launch counts (rows 1-5 each launched wherever the config
+    runs it; under odc-overlap two chained gathers and two chained
+    scatters a round, one per trunk); one profiled step."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SEAMLESS)
+    log(f"train {SEAMLESS}: full width and depth, "
+        f"{cfg.num_encoder_layers} + {cfg.num_layers} layers "
+        f"({_num_params(cfg):,} parameters)")
+    runs = {}
+    for comm, schedule in TRAIN_CONFIGS:
+        tag = f"{SEAMLESS} {comm} x {schedule}"
+        run = _train_run(tag, cfg, _train_args(SEAMLESS, comm, schedule,
+                                               TRAIN["steps"]))
+        got = run["launches"]
+        rows = {"collective": ("flash_attention",),
+                "odc": ("flash_attention", "odc_gather",
+                        "odc_scatter_accumulate"),
+                "odc-overlap": ("flash_attention", "odc_gather",
+                                "odc_scatter_accumulate",
+                                "odc_gather_layers",
+                                "odc_scatter_accumulate_layers")}[comm]
+        if not all(got[name] > 0 for name in rows):
+            fail(f"train {tag}: a kernel it runs never launched: {got}")
+        if comm == "odc-overlap":
+            rounds = sum(st["microbatches"] for st in run["steps"])
+            log(f"train {tag}: {got['odc_gather_layers']} chained gathers "
+                f"and {got['odc_scatter_accumulate_layers']} chained "
+                f"scatters over {rounds} rounds: one of each per trunk "
+                f"(encoder, decoder) a round")
+            if got["odc_gather_layers"] != 2 * rounds \
+                    or got["odc_scatter_accumulate_layers"] != 2 * rounds:
+                fail(f"train {tag}: the chained rings do not walk both "
+                     f"trunks")
+        runs[tag] = run
+    _hold_to_first(runs)
+    log(f"train {SEAMLESS} peaks: " + ", ".join(
+        f"{tag} {run['peak_bytes'] / 2 ** 30:.2f} GiB"
+        for tag, run in runs.items()))
+    profile = _profile_train_step("odc", "minibatch", cfg=cfg)
+    return {"runs": runs, "profile": profile}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serve qwen-1.5b at full width through the entry point, then
 # the wave prefill with the plain attention, and a decode-step profile
 # ---------------------------------------------------------------------------
@@ -2560,7 +2778,10 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
     (forward, and the recompute of the backward pass); one ring launch
     serves every rank.  The per-layer leaves are those of one block; the
     top-level ones are every leaf that is not stacked (the hybrid's
-    shared block among them)."""
+    shared block among them).  The audio family runs attention once in
+    each encoder layer and twice (self and cross) in each decoder layer,
+    and has two trunks: under the overlap schedule each round launches
+    one chained gather and one chained scatter per trunk."""
     from repro_torch.core import fsdp
     from repro_torch.models import transformer as T
 
@@ -2569,7 +2790,8 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
     sharded = [p for p in fsdp.tree_paths(dims)
                if fsdp.moves(fsdp.get(dims, p))]
     top = [p for p in sharded if fsdp.stack_depth(p) == 0]
-    block = fsdp.layer_dims(dims, fsdp.trunk_group(dims))
+    trunks = fsdp.trunk_groups(dims)
+    block = fsdp.layer_dims(dims, trunks[0])
     moving = lambda b: sum(fsdp.moves(fsdp.get(b, p))
                            for p in fsdp.tree_paths(b))
     # blocks outside the chained rings under the overlap schedule: the
@@ -2582,6 +2804,10 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
             moving(block["dense"]) if P > 1 else 0))
         per_layer = moving(block["moe"])  # (no tail: unused)
         L = n_super * P
+    elif cfg.family == "audio":
+        trunk_leaves = cfg.num_encoder_layers * moving(block) \
+            + L * moving(fsdp.layer_dims(dims, "dec_layers"))
+        per_layer = 0  # (no tail: unused)
     else:
         per_layer = moving(block)
         trunk_leaves = L * per_layer
@@ -2591,7 +2817,9 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
     # recompute: per layer, or per shared-block invocation
     per_mb = ({"ssd_scan": L} if cfg.family == "ssm" else
               {"ssd_scan": L, "flash_attention": T.hybrid_split(cfg)[1]}
-              if cfg.family == "hybrid" else {"flash_attention": L})
+              if cfg.family == "hybrid" else
+              {"flash_attention": cfg.num_encoder_layers + 2 * L}
+              if cfg.family == "audio" else {"flash_attention": L})
     want = dict.fromkeys(KERNELS, 0)
     ring = comm in ("odc", "odc-overlap", "cp")
     cp = summary.get("cp", 1)
@@ -2629,8 +2857,8 @@ def _expected_launches(cfg, comm, schedule, summary, dims):
                 * ring
             want["odc_scatter_accumulate"] += \
                 M * (len(top) + tail * per_layer) * ring
-            want["odc_gather_layers"] += M * ring
-            want["odc_scatter_accumulate_layers"] += M * ring
+            want["odc_gather_layers"] += M * ring * len(trunks)
+            want["odc_scatter_accumulate_layers"] += M * ring * len(trunks)
         elif schedule == "minibatch" and cp > 1:
             # each cp group runs its real microbatches in lockstep (a
             # group's count is the largest of its rows'); per layer and
@@ -2774,6 +3002,7 @@ def _profile_train_step(comm="odc", schedule="minibatch", cp=1,
     from repro_torch.core.train_step import Trainer
     from repro_torch.data.loader import SyntheticSFTLoader
     from repro_torch.data.packing import build_minibatch
+    from repro_torch.launch.train import stub_extras
     from repro_torch.models import transformer as T
 
     from repro_torch.kernels.flash_attention import BWD_LABEL
@@ -2795,7 +3024,7 @@ def _profile_train_step(comm="odc", schedule="minibatch", cp=1,
                              window=cfg.sliding_window), cp=cp)
     sd = next(loader.steps(1))
     batch = build_minibatch(sd["plan"], sd["sample_tokens"],
-                            spec["max_tokens"])
+                            spec["max_tokens"], extras=stub_extras(cfg, 0))
     counts = [len(a) for a in sd["plan"].assignments]
 
     def step():
@@ -3854,7 +4083,9 @@ def phase_times(errs, grad_errs, gm_errs, serve_runs, train_runs) -> list:
     shapes = []
     for name in ("serve prefill", "serve decode", "train",
                  "zamba2 serve prefill", "zamba2 serve decode",
-                 "zamba2 train"):
+                 "zamba2 train", "seamless encoder serve",
+                 "seamless cross prefill", "seamless cross decode",
+                 "seamless train cross"):
         grad_err = None
         if name in ("train", "zamba2 train"):
             heads = (dict(H=32, KH=32, hd=64) if name == "zamba2 train"
@@ -3870,8 +4101,12 @@ def phase_times(errs, grad_errs, gm_errs, serve_runs, train_runs) -> list:
             q, k, v, kw = _attn_case(B, S, T, H, KH, hd, torch.float32,
                                      seed=99, **opt)
             shape = (f"{name}: q {tuple(q.shape)} kv {tuple(k.shape)} "
-                     f"float32, cache valid to {opt['kv_valid'][0]}")
+                     f"float32, " + (f"cache valid to {opt['kv_valid'][0]}"
+                                     if "kv_valid" in opt else
+                                     "non-causal, no segment ids"))
             err = errs[(name, torch.float32)]
+            if name in GRAD_CASES:
+                grad_err = grad_errs[name][1]
         ms = _time_ms(lambda: fa.flash_attention(q, k, v, **kw))
         plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw))
         lib_ms = _time_ms(_sdpa(q, k, v, kw))
@@ -4006,6 +4241,8 @@ def main() -> int:
     grok_served = phase_grok_serve()
     moe_trained = phase_moe_train()
     chameleon = phase_chameleon()
+    seamless_served = phase_seamless_serve()
+    seamless_trained = phase_seamless_train()
     served = phase_serve()
     trained = phase_train()
     cp_trained = phase_cp_train()
@@ -4019,12 +4256,14 @@ def main() -> int:
     runs.update(zamba_trained["runs"])
     runs.update(moe_trained["runs"])
     runs.update(chameleon["runs"])
+    runs.update(seamless_trained["runs"])
     records = phase_times(errs, grad_errs, gm["errs"], {
         "serve": served["launches"],
         f"serve {MAMBA}": mamba_served["launches"],
         f"serve {ZAMBA}": zamba_served["launches"],
         f"serve {GROK}": grok_served["launches"],
         f"serve {CHAMELEON}": chameleon["launches"],
+        f"serve {SEAMLESS}": seamless_served["launches"],
         "gather_matmul": gm["launches"]}, runs)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
     print(env["smi"])

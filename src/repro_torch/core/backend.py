@@ -76,8 +76,11 @@ Under a two-tier layout the norms shard over the intra tier only
 the inter tier, and a replicated leaf's over every rank (the leftover
 psum of ``gspmd.make_train_step``).
 
-The moe family runs under ``collective``, ``odc`` and ``odc-overlap``;
-``resolve`` refuses it under ``cp`` and the two-tier backends.  Under
+The moe and audio families run under ``collective``, ``odc`` and
+``odc-overlap``; ``resolve`` refuses them under ``cp`` and the two-tier
+backends.  The audio family's two trunks, ``enc_layers`` and
+``dec_layers``, are each walked by the overlap schedule (and chained on
+their own under a ring backend: ``core.overlap.ChainedTrunks``).  Under
 weight-stationary expert parallelism (``fsdp.Stationary`` expert leaves)
 no schedule gathers or scatters an expert leaf: each rank computes with
 its own experts and their gradient lands on its shard through the
@@ -371,12 +374,13 @@ def get_backend(name) -> CommBackend:
                      f"{backend_names()}")
 
 
-def resolve(comm, schedule: str, *, moe: bool = False, ep: bool = False):
+def resolve(comm, schedule: str, *, moe: bool = False, ep: bool = False,
+            audio: bool = False):
     """(backend, schedule) for an engine config: the backend may force its
     implied schedule (``comm='odc-overlap'`` => ``schedule='overlap'``);
     otherwise the caller's schedule is honoured unchanged.  ``moe``: the
     model is of the moe family; ``ep``: with weight-stationary expert
-    parallelism."""
+    parallelism; ``audio``: of the audio encoder-decoder family."""
     backend = get_backend(comm)
     schedule = backend.implied_schedule or schedule
     if schedule not in SCHEDULES:
@@ -390,6 +394,11 @@ def resolve(comm, schedule: str, *, moe: bool = False, ep: bool = False):
         raise NotImplementedError(
             f"the moe family under comm {backend.name!r} is not yet ported "
             f"to repro_torch (ROADMAP.md queue 1 item 12); use comm "
+            f"'collective', 'odc' or 'odc-overlap'")
+    if audio and (backend is CP or backend.two_tier):
+        raise NotImplementedError(
+            f"the audio family under comm {backend.name!r} is not yet "
+            f"ported to repro_torch (ROADMAP.md queue 1 item 14); use comm "
             f"'collective', 'odc' or 'odc-overlap'")
     if ep and schedule == "overlap":
         raise NotImplementedError(
@@ -459,7 +468,8 @@ def _unit_dims(dims):
     top-level keys: the top-level leaves, and one block of each stacked
     kind (the hybrid's ``mamba`` and ``mamba_tail`` blocks have the same
     leaves, sharded alike, so they share a key; the moe family's moe and
-    dense blocks have keys of their own)."""
+    dense blocks, and the audio family's encoder and decoder blocks (the
+    latter with ``cross`` and ``cross_norm``), have keys of their own)."""
     units = {frozenset(fsdp.top_dims(dims)): fsdp.top_dims(dims)}
     for d in fsdp.block_dims(dims):
         units[frozenset(d)] = d
@@ -480,7 +490,7 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
       dims        tree of each leaf's sharded dim (``fsdp.leaf_dims``)
       order       the rings' order (None = natural)
       chain       schedule 'overlap' with a ring backend: the Trainer's
-                  ``core.overlap.ChainedLayers``
+                  ``core.overlap.ChainedTrunks``
       pipe_stages, pipe_interleave
                   schedule '1f1b': the depth and variant of the stage-0
                   ``instructions_1f1b`` order
@@ -501,10 +511,10 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
         raise ValueError(f"schedule '1f1b' needs pipe_stages >= 1, got "
                          f"{pipe_stages}")
     units = _unit_dims(dims)
-    # the group the overlap schedule's prefetch walks, one slice of its
+    # the groups the overlap schedule's prefetch walks, one slice of its
     # first stack dim at a time (a layer, or a hybrid super-layer)
-    trunk = fsdp.trunk_group(dims)
-    slice_dims = fsdp.layer_dims(dims, trunk, 1)
+    slice_dims = {g: fsdp.layer_dims(dims, g, 1)
+                  for g in fsdp.trunk_groups(dims)}
 
     def zero(t):
         return torch.zeros((), dtype=torch.float32, device=t.device)
@@ -575,9 +585,10 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
             # the top-level leaves and replicated per-layer leaves are
             # trainable here, as in the 'layer' schedule
             chain.begin_step(shards)
-            pairs = [trainable(_unpacked(s, chain.packing)) for s in shards]
+            pairs = [trainable(chain.unpacked(s)) for s in shards]
             for c, _ in pairs:
-                c.setdefault(chain.packing.group, {})
+                for group in chain.groups:
+                    c.setdefault(group, {})
         else:
             pairs = [trainable(s) for s in shards]
         compute = [c for c, _ in pairs]
@@ -588,9 +599,10 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
                 chain.begin_round()
                 anchor = torch.zeros((), device=chain.device,
                                      requires_grad=True)
-                prefetch = overlap.ChainedPrefetch(chain, anchor)
+                prefetch = chain.prefetch(anchor)
             elif schedule == "overlap":
-                prefetch = _LayerPrefetch(backend, slice_dims, order)
+                prefetch = {g: _LayerPrefetch(backend, d, order)
+                            for g, d in slice_dims.items()}
             else:
                 prefetch = None
             outs = loss_ranks(compute, [microbatches[r][j] for r in range(n)],
@@ -606,10 +618,9 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
                 toks[r] = toks[r] + t
         grads = [g for _, g in pairs]
         if chained:
-            for g, trunk in zip(grads, chain.end_step()):
-                for path in fsdp.tree_paths(trunk):
-                    fsdp.put(g, (chain.packing.group,) + path,
-                             fsdp.get(trunk, path))
+            for g, trunks in zip(grads, chain.end_step()):
+                for path in fsdp.tree_paths(trunks):
+                    fsdp.put(g, path, fsdp.get(trunks, path))
         _sum_leftover(grads, dims, backend)
         return lsums, toks, grads
 
@@ -653,18 +664,6 @@ class _LayerPrefetch:
 
     def materialize(self, full):
         return full
-
-
-def _unpacked(shard_tree, packing):
-    """A rank's shard tree without the per-layer leaves that the chained
-    rings carry (every other group, and any replicated leaf of the chained
-    group)."""
-    out = {k: v for k, v in shard_tree.items() if k != packing.group}
-    layers = {}
-    for path in packing.replicated:
-        fsdp.put(layers, path, fsdp.get(shard_tree[packing.group], path))
-    out[packing.group] = layers
-    return out
 
 
 def _sum_over_ranks(ys: Sequence[torch.Tensor]) -> List[torch.Tensor]:

@@ -14,7 +14,10 @@ dims later as its group's stack depth (``stack_depth``, the rule of
 ``mamba`` (n_super, P, ...) 2, ``mamba_tail`` (tail, ...) 1 and
 ``shared_attn`` 0 (one block, not stacked); the moe family's
 ``layers/moe`` (n_super, ...) 1 and ``layers/dense`` (n_super, P-1, ...)
-2.  The moe block's leaves: ``router`` (d, E) on dim 0; the experts
+2; the audio family's ``enc_layers`` and ``dec_layers`` 1 each (the
+decoder block's ``cross`` attention and ``cross_norm`` shard as any
+attention and norm leaves).  The moe block's leaves: ``router`` (d, E)
+on dim 0; the experts
 ``w_up`` and ``w_gate`` (E, d, f) on dim 1 and ``w_down`` (E, f, d) on
 dim 2, told apart from a dense FFN's leaves of the same names by their
 parent key ``moe`` (a stacked ``shared_mlp`` leaf has the same rank as a
@@ -49,7 +52,11 @@ import torch
 
 #: stack depth of each top-level parameter group (the groups of every
 #: ported family); any other top-level key is not stacked
-STACK_DEPTH = {"layers": 1, "mamba": 2, "mamba_tail": 1, "shared_attn": 0}
+STACK_DEPTH = {"layers": 1, "mamba": 2, "mamba_tail": 1, "shared_attn": 0,
+               "enc_layers": 1, "dec_layers": 1}
+#: the trunks of a family with two, in forward order (the audio
+#: encoder-decoder's)
+TWO_TRUNKS = ("enc_layers", "dec_layers")
 #: stack depth of the moe family's super-layer containers under ``layers``
 SUPER_DEPTH = {"moe": 1, "dense": 2}
 _DIM0 = ("lm_head", "wq", "wk", "wv", "w_gate", "w_up", "in_proj", "router")
@@ -115,11 +122,26 @@ def stacked_groups(tree) -> List[str]:
             and isinstance(tree[k], dict)]
 
 
+def trunk_groups(tree) -> List[str]:
+    """The stacked groups that the overlap schedule's prefetch and chained
+    rings walk, each by its first stack dim, in forward order: the
+    encoder-decoder's ``enc_layers`` then ``dec_layers``; else the deepest
+    of ``tree``'s stacked groups alone (``layers``, or the hybrid's
+    ``mamba``, by its super-layers)."""
+    groups = stacked_groups(tree)
+    if set(TWO_TRUNKS) <= set(groups):
+        return list(TWO_TRUNKS)
+    return [max(groups, key=STACK_DEPTH.get)]
+
+
 def trunk_group(tree) -> str:
-    """The stacked group that the overlap schedule's prefetch and chained
-    rings walk by its first stack dim: the deepest of ``tree``'s stacked
-    groups (``layers``, or the hybrid's ``mamba``, by its super-layers)."""
-    return max(stacked_groups(tree), key=STACK_DEPTH.get)
+    """The one trunk of ``tree`` (``trunk_groups``); a tree of two trunks
+    raises."""
+    groups = trunk_groups(tree)
+    if len(groups) != 1:
+        raise ValueError(f"the tree has {len(groups)} trunks {groups}; "
+                         f"name one")
+    return groups[0]
 
 
 def leaf_dim(path: Sequence[str], shape, n: int,
@@ -182,7 +204,8 @@ def layer_dims(dims, group: str = "layers", depth: Optional[int] = None):
 def block_dims(dims) -> List[dict]:
     """The dims of one block of each stacked kind: a layer of ``layers``
     (the moe family: a moe block and a dense block), a mamba block of the
-    hybrid's ``mamba`` and ``mamba_tail``."""
+    hybrid's ``mamba`` and ``mamba_tail``, an encoder and a decoder block
+    of the audio family's ``enc_layers`` and ``dec_layers``."""
     out = []
     for group in stacked_groups(dims):
         d = layer_dims(dims, group)

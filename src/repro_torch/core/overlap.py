@@ -8,7 +8,9 @@ the leaves' layer shards side by side, in ``fsdp.tree_paths`` order; for
 the hybrid family a "layer" is a super-layer of P mamba blocks, L =
 n_super, and the tail and the shared block move through the single-leaf
 rings with the top-level leaves; for the moe family a super-layer of P-1
-dense blocks and one moe block, L = n_super), and
+dense blocks and one moe block, L = n_super; the audio encoder-decoder
+has two trunks, ``enc_layers`` and ``dec_layers``, each packed and
+chained on its own, ``ChainedTrunks``), and
 the step owns three per-rank buffers for its whole length: the packed
 shards, the gathered trunk (L, n*c_flat) and the packed gradient
 (L, c_flat), of which the gradient tree's trunk leaves are views.  The
@@ -44,6 +46,12 @@ Per lockstep round (microbatch j of every rank):
    waits for the scatter, which waits for flags the host has not yet
    enqueued (measured on the H100: the host hung in the first launch of
    a kernel after the scatter until the scatter's 30 s trap).
+
+With two trunks every round launches two chained gathers, the
+encoder's then the decoder's, and two chained scatters, the decoder's
+then the encoder's (the order their backwards finish in), all on one
+side stream: one chained kernel runs at a time, as each assumes that
+the rest of the card is free for the compute stream.
 
 ``end_step`` makes the compute stream wait for the side stream and
 returns the gradient views.  On CPU tensors the same steps run the plain
@@ -82,18 +90,20 @@ from repro_torch.kernels import odc_scatter as kscatter
 class LayerPacking:
     """Where each sharded per-layer leaf's layer shard lies in a rank's
     packed (L, c_flat) row, and the conversions between the packed
-    buffers and the leaves.  The chained group is ``fsdp.trunk_group``:
+    buffers and the leaves.  The chained group is ``group``, by default
+    ``fsdp.trunk_group``:
     ``layers``, whose L layers are the rows, or the hybrid's ``mamba``,
     whose L = n_super super-layers are (each row the shards of a
     super-layer's P blocks, a layer's leaves of shape (P, ...)), or the
     moe family's ``layers``, whose rows are its super-layers (a moe
-    block's leaves, and its P-1 dense blocks' of shape (P-1, ...)).
+    block's leaves, and its P-1 dense blocks' of shape (P-1, ...)), or
+    one of the audio family's ``enc_layers`` and ``dec_layers``.
     Replicated per-layer leaves (a dim the rank count does not divide) and
     stationary experts are not packed: each rank computes with its own."""
 
-    def __init__(self, shapes, dims, n: int):
+    def __init__(self, shapes, dims, n: int, group=None):
         self.n = n
-        self.group = fsdp.trunk_group(dims)
+        self.group = group or fsdp.trunk_group(dims)
         self.num_layers = None
         self.entries = []  # (path in the layer tree, layer dim, shard shape,
         #                     offset, size)
@@ -186,9 +196,11 @@ class ChainedLayers:
     the side stream and the per-layer signals (kept across steps), and
     per step the packed shards, the gathered trunk and the packed
     gradient.  On a card it first checks that stream memory operations
-    work, so that a card that refuses them raises before anything runs."""
+    work, so that a card that refuses them raises before anything runs.
+    ``side``: the side stream to run on (default: a new one)."""
 
-    def __init__(self, packing: LayerPacking, devices, order=None):
+    def __init__(self, packing: LayerPacking, devices, order=None,
+                 side=None):
         self.packing = packing
         self.n = len(devices)
         self.device = devices[0]
@@ -200,7 +212,7 @@ class ChainedLayers:
         self.side = None
         if self.cuda:
             _ring.probe_stream_memops(self.device)
-            self.side = torch.cuda.Stream(device=self.device)
+            self.side = side or torch.cuda.Stream(device=self.device)
         self.packed = self.bufs = self.grads = None
 
     def _side_after_compute(self):
@@ -289,3 +301,58 @@ class ChainedPrefetch:
     def materialize(self, handle):
         layer, layer_trees = handle
         return self.chain.materialize(layer, self.anchor, layer_trees)
+
+
+class ChainedTrunks:
+    """The overlap schedule's state for one Trainer over every trunk of
+    the tree (``fsdp.trunk_groups``): one ``ChainedLayers`` a trunk, in
+    forward order, all on one side stream.  A round gathers the trunks
+    in forward order and, after the backward, scatters them in reverse."""
+
+    def __init__(self, shapes, dims, devices, order=None):
+        n = len(devices)
+        self.chains = []
+        side = None
+        for group in fsdp.trunk_groups(dims):
+            chain = ChainedLayers(LayerPacking(shapes, dims, n, group),
+                                  devices, order, side=side)
+            side = chain.side
+            self.chains.append(chain)
+        self.device = self.chains[0].device
+        self.groups = [c.packing.group for c in self.chains]
+
+    def unpacked(self, shard_tree):
+        """A rank's shard tree without the per-layer leaves that the
+        chained rings carry: each trunk keeps only its replicated leaves
+        (an empty tree when it has none)."""
+        out = dict(shard_tree)
+        for chain in self.chains:
+            p = chain.packing
+            layers = {}
+            for path in p.replicated:
+                fsdp.put(layers, path, fsdp.get(shard_tree[p.group], path))
+            out[p.group] = layers
+        return out
+
+    def begin_step(self, shards):
+        for chain in self.chains:
+            chain.begin_step(shards)
+
+    def begin_round(self):
+        for chain in self.chains:
+            chain.begin_round()
+
+    def prefetch(self, anchor):
+        """The round's ``prefetch`` hooks, one per trunk group."""
+        return {c.packing.group: ChainedPrefetch(c, anchor)
+                for c in self.chains}
+
+    def after_backward(self):
+        for chain in reversed(self.chains):
+            chain.after_backward()
+
+    def end_step(self):
+        """Per rank, {trunk group: its stacked gradient leaves}."""
+        views = [chain.end_step() for chain in self.chains]
+        return [{c.packing.group: v[r] for c, v in zip(self.chains, views)}
+                for r in range(len(views[0]))]

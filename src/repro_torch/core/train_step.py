@@ -10,10 +10,11 @@ each layer is recomputed in the backward pass.
 
 The overlap schedule's materialize-ahead hook (``gspmd.pxform_overlap``
 and the ``prefetch`` it hands to ``build_schedule_grad``): with a ring
-backend the Trainer owns a ``core.overlap.ChainedLayers`` (the trunk's
-packing, the side stream and the per-layer signals, kept across steps),
-whose per-round ``ChainedPrefetch`` materializes each layer from the
-chained gather; with ``collective`` the hook gathers layer l+1 through
+backend the Trainer owns a ``core.overlap.ChainedTrunks`` (per trunk,
+the audio family's two included: its packing, the side stream and the
+per-layer signals, kept across steps), whose per-round
+``ChainedPrefetch`` hooks materialize each layer from the chained
+gather; with ``collective`` the hook gathers layer l+1 through
 ``param_gather`` one iteration ahead.
 
 Context parallelism (``comm='cp'``, ``cp`` > 1): the ranks form groups
@@ -29,6 +30,10 @@ ranks (``core.ranks.Tiers``), the norms shard over a group's ranks only
 (``fsdp.IntraDim``), and the backend moves every other leaf over both
 tiers; under ``pipe`` the ``1f1b`` schedule issues each rank's
 microbatches in the order of an ``inter``-stage pipeline.
+
+The audio family (``collective``, ``odc``, ``odc-overlap``): each
+microbatch row carries its frame embeddings (``encoder_embeds``, split by
+rows); ``backend.resolve`` refuses cp and the two-tier backends.
 
 The moe family (``collective``, ``odc``, ``odc-overlap``): ``moe_groups``
 and ``moe_ep`` are ``GSPMDConfig.moe_groups`` and ``moe_ep``.  Every rank
@@ -59,7 +64,7 @@ from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
 _BATCH_KEYS = ("tokens", "targets", "positions", "segment_ids", "loss_mask")
 _INDEX_KEYS = ("tokens", "targets")
 # batch leaves split by rows only (the stub frontend's embeddings)
-_ROW_KEYS = ("vision_embeds",)
+_ROW_KEYS = ("vision_embeds", "encoder_embeds")
 
 
 def _global_norm(grads: Sequence[dict], dims) -> torch.Tensor:
@@ -108,8 +113,9 @@ class Trainer:
         self.moe = T.is_moe(self.cfg)
         self.ep = (self.moe and self.moe_ep == "data" and E % n == 0
                    and E >= n)
-        self.backend, self.schedule = B.resolve(self.comm, self.schedule,
-                                                moe=self.moe, ep=self.ep)
+        self.backend, self.schedule = B.resolve(
+            self.comm, self.schedule, moe=self.moe, ep=self.ep,
+            audio=self.cfg.family == "audio")
         if self.cp != 1 and self.backend is not B.CP:
             raise ValueError(f"cp={self.cp} needs comm 'cp', not "
                              f"{self.backend.name!r}")
@@ -126,9 +132,8 @@ class Trainer:
             shapes, n, self.tiers.intra if self.tiers else None, self.ep)
         self.chain = None
         if self.schedule == "overlap" and self.backend.chained:
-            self.chain = overlap.ChainedLayers(
-                overlap.LayerPacking(shapes, self.dims, n),
-                self.ranks.devices, self.order)
+            self.chain = overlap.ChainedTrunks(shapes, self.dims,
+                                               self.ranks.devices, self.order)
 
         def loss_ranks(params_list, batches, pxform, prefetch):
             outs = T.loss_ranks(self.cfg, params_list, batches,

@@ -23,6 +23,12 @@ what the full forward would; llama4's prompt batch carries the vision
 stub's patch embeddings (``vision_embeds``, drawn from ``--seed``, over
 the first min(frontend_tokens, prompt) positions), as the JAX driver's
 does.  The vlm family (``--arch chameleon-34b``) is the dense trunk.
+The audio family (``--arch seamless-m4t-medium``) serves in wave mode: the
+prefill encodes the stub frontend's frame embeddings (``encoder_embeds``,
+(batch, prompt, d), drawn from ``--seed``, as the JAX driver's) and keeps
+the encoder output in the cache, and each decode step cross-attends to
+it; every self-, encoder and cross-attention call goes through the flash
+kernel.
 
 Weights are random, drawn from ``--seed`` by a ``torch.Generator`` on the
 target device.  Runs on the card unless ``--device cpu`` is given;
@@ -41,6 +47,8 @@ Examples:
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch seamless-m4t-medium --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -84,7 +92,8 @@ def parse_args(argv=None):
                          "decode lanes with block-allocated KV; short "
                          "requests retire early and queued ones join "
                          "mid-decode (the dense family only: the vlm, moe, "
-                         "ssm and hybrid families serve in wave mode)")
+                         "ssm, hybrid and audio families serve in wave "
+                         "mode)")
     ap.add_argument("--slots", type=int, default=4,
                     help="continuous: decode lanes (the decode batch width)")
     ap.add_argument("--requests", type=int, default=12,
@@ -140,16 +149,19 @@ def build(args, cfg=None):
 
 def stub_extras(cfg, args, B: int, S: int):
     """The stub frontend's prefill entries of a (B, S) prompt batch
-    (``repro.launch.serve``'s): for a vision frontend, (B, min(
-    frontend_tokens, S), d) patch embeddings drawn from ``--seed``; else
-    None."""
-    if cfg.frontend != "vision" or not cfg.frontend_tokens:
+    (``repro.launch.serve``'s), drawn from ``--seed``: for the audio
+    family, (B, S, d) frame embeddings; for a vision frontend, (B, min(
+    frontend_tokens, S), d) patch embeddings; else None."""
+    if cfg.family == "audio":
+        key, n = "encoder_embeds", S
+    elif cfg.frontend == "vision" and cfg.frontend_tokens:
+        key, n = "vision_embeds", min(cfg.frontend_tokens, S)
+    else:
         return None
     device = _device(args)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    ve = torch.randn((B, min(cfg.frontend_tokens, S), cfg.d_model),
-                     generator=gen, device=device)
-    return {"vision_embeds": ve.to(DTYPES[args.dtype])}
+    x = torch.randn((B, n, cfg.d_model), generator=gen, device=device)
+    return {key: x.to(DTYPES[args.dtype])}
 
 
 def make_engine(cfg, args) -> GenerationEngine:

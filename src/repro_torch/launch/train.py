@@ -34,7 +34,15 @@ the two-tier backends (ROADMAP.md queue 1 item 12); each step's batch
 carries the vision stub's patch embeddings for llama4 (``vision_embeds``,
 drawn per step from ``numpy.random.RandomState(step)``, as the JAX
 driver draws them).  The vlm family (``--arch chameleon-34b``) trains
-wherever the dense family does.  Weights are random, drawn from
+wherever the dense family does.  The audio family (``--arch
+seamless-m4t-medium``: an encoder-decoder, the encoder's layers over the
+stub frontend's frame embeddings and the decoder's cross-attending to
+them) trains under collective, odc and odc-overlap (two chained trunks,
+the encoder's and the decoder's) and refuses cp and the two-tier
+backends (ROADMAP.md queue 1 item 14); each step's batch carries 16
+frames a microbatch row (``encoder_embeds``, drawn per step from
+``numpy.random.RandomState(step)``, as the JAX driver draws them).
+Weights are random, drawn from
 ``--seed`` by a ``torch.Generator`` on the target device, in float32;
 float32 products run in full f32 (TF32 off).
 Runs on the card unless ``--device cpu`` is given.
@@ -151,8 +159,9 @@ def parse_args(argv=None):
                          "--pipe-stages; -int8 sends the inter tier as "
                          "chunked int8); the ssm and hybrid families "
                          "(mamba2, zamba2) take every choice but cp, the "
-                         "moe family (grok-1, llama4-maverick) collective, "
-                         "odc and odc-overlap")
+                         "moe family (grok-1, llama4-maverick) and the "
+                         "audio family (seamless-m4t) collective, odc and "
+                         "odc-overlap")
     ap.add_argument("--device-profile", default="none",
                     choices=("none", "homogeneous", "one_slow", "bimodal",
                              "uniform"),
@@ -232,6 +241,12 @@ def parse_args(argv=None):
                  f"{backend.name} is not yet ported to repro_torch "
                  f"(ROADMAP.md queue 1 item 12); use --comm collective, "
                  f"odc or odc-overlap")
+    if (backend is backends.CP or backend.two_tier) \
+            and get_config(args.arch).family == "audio":
+        ap.error(f"--arch {args.arch} (the audio family) under --comm "
+                 f"{backend.name} is not yet ported to repro_torch "
+                 f"(ROADMAP.md queue 1 item 14); use --comm collective, "
+                 f"odc or odc-overlap")
     args.inter = 2
     if backend.two_tier:
         args.inter = (args.nodes if backend.name == "hier"
@@ -250,6 +265,25 @@ def parse_args(argv=None):
     else:
         args.cp = 1
     return args
+
+
+def stub_extras(cfg, step: int):
+    """The stub frontends' embeddings of one step's batch
+    (``repro.launch.train``'s ``extras_for``), drawn from
+    ``numpy.random.RandomState(step)`` so that a resumed run draws what an
+    uninterrupted one would have: for the audio family 16 frames a
+    microbatch row (``encoder_embeds``), for a vision frontend its patch
+    embeddings (``vision_embeds``); else None.  ``build_minibatch`` calls
+    each with (M, W)."""
+    if cfg.family == "audio":
+        rng = np.random.RandomState(step)
+        return {"encoder_embeds": lambda M, W: rng.randn(
+            M, W, 16, cfg.d_model).astype(np.float32)}
+    if cfg.frontend == "vision" and cfg.frontend_tokens:
+        rng = np.random.RandomState(step)
+        return {"vision_embeds": lambda M, W: rng.randn(
+            M, W, cfg.frontend_tokens, cfg.d_model).astype(np.float32)}
+    return None
 
 
 def _sync(ranks):
@@ -333,16 +367,6 @@ def run(args, *, return_params: bool = False, cfg=None,
         max_len=args.max_len, cost_model=cm, seed=args.seed,
         device_profile=profile, cp=args.cp)
 
-    def extras_for(step):
-        """The stub frontend's per-step embeddings (``repro.launch.train``'s
-        ``extras_for``): a resumed run draws what an uninterrupted one
-        would have."""
-        if cfg.frontend == "vision" and cfg.frontend_tokens:
-            rng = np.random.RandomState(step)
-            return {"vision_embeds": lambda M, W: rng.randn(
-                M, W, cfg.frontend_tokens, cfg.d_model).astype(np.float32)}
-        return None
-
     reset_launches()
     if ranks.devices[0].type == "cuda":
         torch.cuda.reset_peak_memory_stats(ranks.devices[0])
@@ -353,7 +377,7 @@ def run(args, *, return_params: bool = False, cfg=None,
                                   start=start_step):
         plan = step_data["plan"]
         batch = build_minibatch(plan, step_data["sample_tokens"],
-                                args.max_tokens, extras=extras_for(i))
+                                args.max_tokens, extras=stub_extras(cfg, i))
         counts = [len(a) for a in plan.assignments]
         split = len(getattr(plan, "cp_split", ()))
         t0 = time.time()

@@ -206,18 +206,31 @@ def attn_params(gen, cfg, dtype, prefix_shape=()):
 
 def attn_apply(cfg, p, x, *, window: int = 0, positions=None,
                segment_ids=None, cache=None, cache_index=None,
-               causal: bool = True):
-    """Self-attention of one layer.
+               causal: bool = True, cross_kv=None):
+    """Self- (or cross-) attention of one layer.
 
     window: this layer's static sliding window (0 = global).
     cache: optional {"k": (B, T, KH, hd), "v": ...}.  The new k/v are
     written IN PLACE at ``cache_index`` (an int, or a (B,) tensor for
     per-row decode) and attention runs over the whole cache, positions
     past the write index masked.  Returns (out, cache).
+    cross_kv: (k, v) of an encoder output, each (B, T, KH, hd): cross-
+    attention (the encoder-decoder's).  q is projected (and q-normed
+    under ``qk_norm``); k and v are used as given; no rope on either
+    side, kv positions ``arange(T)``, no segment ids, not causal, no
+    cache.
     """
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
+    if cross_kv is not None:
+        if cache is not None:
+            raise ValueError("cross-attention takes no cache")
+        k, v = cross_kv
+        out = _ATTN_IMPL(attn_q(cfg, p, x), k, v, causal=False,
+                         window=window, logit_softcap=cfg.attn_logit_softcap,
+                         q_positions=positions)
+        return attn_out(p, out), None
     q, k, v = attn_qkv(cfg, p, x, positions)
 
     kv_positions = positions
@@ -256,17 +269,24 @@ def attn_apply(cfg, p, x, *, window: int = 0, positions=None,
     return attn_out(p, out), cache
 
 
+def attn_q(cfg, p, x):
+    """q (B, S, H, hd) of x (B, S, d): the projection and the q norm (no
+    rope)."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
 def attn_qkv(cfg, p, x, positions):
     """q (B, S, H, hd), k and v (B, S, KH, hd) of x (B, S, d): the
     projections, the qk norm and rope at ``positions`` (B, S)."""
     B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
-    H, KH = cfg.num_heads, cfg.num_kv_heads
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KH, hd)
-    v = (x @ p["wv"]).reshape(B, S, KH, hd)
+    q = attn_q(cfg, p, x)
+    k = (x @ p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
+    v = (x @ p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.resolved_head_dim)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)

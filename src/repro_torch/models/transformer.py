@@ -1,6 +1,6 @@
-"""Model assembly, dense, vlm, moe, ssm and hybrid families: the PyTorch
-counterpart of those paths of ``repro.models.transformer`` (the audio
-encoder-decoder is not ported yet).
+"""Model assembly, every family (dense, vlm, moe, ssm, hybrid and the
+audio encoder-decoder): the PyTorch counterpart of
+``repro.models.transformer``.
 
     init_params(cfg, gen, dtype)                   -> params dict
     apply(cfg, params, batch, ...)                 -> (logits, aux, caches)
@@ -47,6 +47,19 @@ Its caches are ``{"moe": {"k", "v", "router_counts"}, "dense": {"k",
 E) int32 tally of tokens per expert, returned anew, which makes prefill
 plus decode drop what the full forward drops (``moe.moe_apply``).
 ``apply`` returns the summed router aux loss of the moe blocks.
+
+The audio family (seamless-m4t) is an encoder-decoder.  ``enc_layers``
+(num_encoder_layers, ...) are dense blocks with bidirectional self-
+attention at positions ``arange(S)`` over the stub frontend's frame
+embeddings (a batch's ``encoder_embeds``, (B, S_enc, d)), then
+``enc_final_norm``; ``dec_layers`` (L, ...) are dense blocks (window 0),
+each followed by cross-attention (``cross_norm``, ``cross``) to the
+encoder output, whose k and v every block projects anew at every step,
+as the reference does.  Its caches are ``{"self": {"k", "v"} (L, B, T,
+KH, hd), written in place, "enc_out": (B, S_enc, d) or None}``: a
+forward whose batch carries ``encoder_embeds`` encodes them and returns
+the encoder output in the new caches (the prefill); one without reads
+``caches["enc_out"]`` (the decode steps).
 """
 from __future__ import annotations
 
@@ -63,11 +76,11 @@ from repro_torch.models.config import ModelConfig
 
 
 def _require_ported(cfg: ModelConfig):
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"yet (ROADMAP.md, queue 1 item 2); the port runs the dense, "
-            f"vlm, moe, ssm and hybrid families")
+            f"(ROADMAP.md, queue 1 item 2); the port runs the dense, vlm, "
+            f"moe, ssm, hybrid and audio families")
 
 
 def is_moe(cfg: ModelConfig) -> bool:
@@ -84,6 +97,12 @@ def require_cp(cfg: ModelConfig):
             f"not ported (ROADMAP.md, queue 1 item 12): the router's "
             f"capacity and the vision stub's positions are per sequence, "
             f"not per sequence shard")
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: context parallelism of the audio family is not "
+            f"ported (ROADMAP.md, queue 1 item 14): the decoder's cross-"
+            f"attention would read an encoder output replicated over the "
+            f"cp group while its tokens are sharded")
     if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: context parallelism of the {cfg.family} family is "
@@ -142,6 +161,15 @@ def _mamba_block_params(gen, cfg, dtype, prefix_shape=()):
     }
 
 
+def _encdec_dec_params(gen, cfg, dtype, prefix_shape=()):
+    """A decoder block: a dense block, then cross-attention."""
+    p = _dense_block_params(gen, cfg, dtype, prefix_shape)
+    p["cross_norm"] = torch.zeros(prefix_shape + (cfg.d_model,), dtype=dtype,
+                                  device=gen.device)
+    p["cross"] = L.attn_params(gen, cfg, dtype, prefix_shape)
+    return p
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 dtype=torch.float32):
     """Random weights drawn from ``gen``, on ``gen``'s device."""
@@ -160,6 +188,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
             params["mamba_tail"] = _mamba_block_params(gen, cfg, dtype,
                                                        (tail,))
         params["shared_attn"] = _dense_block_params(gen, cfg, dtype)
+        return params
+    if cfg.family == "audio":
+        params["enc_layers"] = _dense_block_params(
+            gen, cfg, dtype, (cfg.num_encoder_layers,))
+        params["enc_final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
+                                               device=gen.device)
+        params["dec_layers"] = _encdec_dec_params(gen, cfg, dtype,
+                                                  (cfg.num_layers,))
         return params
     if is_moe(cfg):
         P, n_super = moe_split(cfg)
@@ -239,6 +275,14 @@ def param_shapes(cfg: ModelConfig):
         params["shared_attn"] = _dense_block_shapes(cfg, meta, ())
     elif cfg.family == "ssm":
         params["layers"] = _mamba_block_shapes(cfg, meta, (cfg.num_layers,))
+    elif cfg.family == "audio":
+        params["enc_layers"] = _dense_block_shapes(
+            cfg, meta, (cfg.num_encoder_layers,))
+        params["enc_final_norm"] = meta(cfg.d_model)
+        dec = _dense_block_shapes(cfg, meta, (cfg.num_layers,))
+        dec["cross_norm"] = meta(cfg.num_layers, cfg.d_model)
+        dec["cross"] = _attn_shapes(cfg, meta, (cfg.num_layers,))
+        params["dec_layers"] = dec
     elif is_moe(cfg):
         P, n_super = moe_split(cfg)
         params["layers"] = {"moe": _moe_block_shapes(cfg, meta, (n_super,))}
@@ -293,6 +337,37 @@ def _apply_cp_blocks(cfg, lps, xs, batches, *, window, cp):
             [batches[r].get("segment_ids") for r in grp], window=window)
     return [_mlp_residual(cfg, lp, x + L.attn_out(lp["attn"], a))
             for lp, x, a in zip(lps, xs, outs)]
+
+
+def _encoder_block(cfg, lp, x):
+    """One encoder block: bidirectional self-attention at positions
+    ``arange(S)`` (no segment ids), then the MLP."""
+    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    a, _ = L.attn_apply(cfg, lp["attn"], h, causal=False)
+    return _mlp_residual(cfg, lp, x + a)
+
+
+def _apply_dec_block(cfg, lp, x, enc_out, *, positions, segment_ids, cache,
+                     cache_index):
+    """One decoder block: a dense block (window 0), then cross-attention
+    on ``cross_norm(x)`` to ``enc_out`` (B, S_enc, d), whose k and v are
+    projected here."""
+    x, cache = _apply_dense_block(cfg, lp, x, window=0, positions=positions,
+                                  segment_ids=segment_ids, cache=cache,
+                                  cache_index=cache_index)
+    h = L.rms_norm(x, lp["cross_norm"], cfg.norm_eps)
+    B, T, _ = enc_out.shape
+    shape = (B, T, cfg.num_kv_heads, cfg.resolved_head_dim)
+    kv = ((enc_out @ lp["cross"]["wk"]).reshape(shape),
+          (enc_out @ lp["cross"]["wv"]).reshape(shape))
+    c, _ = L.attn_apply(cfg, lp["cross"], h, positions=positions,
+                        cross_kv=kv)
+    return x + c, cache
+
+
+def _enc_input(params, batch):
+    """The frame embeddings, in the parameters' type."""
+    return batch["encoder_embeds"].to(params["enc_final_norm"].dtype)
 
 
 def _apply_mamba_block(cfg, lp, x, *, cache):
@@ -480,10 +555,47 @@ def _forward_moe(cfg, params, batch, caches, cache_index, moe_groups):
     return x, aux, new
 
 
+def _encode(cfg, params, encoder_embeds):
+    x = encoder_embeds
+    for i in range(cfg.num_encoder_layers):
+        x = _encoder_block(cfg, _layer(params["enc_layers"], i), x)
+    return L.rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _forward_audio(cfg, params, batch, caches, cache_index):
+    """The encoder-decoder (``_forward_audio`` of the JAX package): the
+    encoder on ``encoder_embeds`` when the batch carries them, else the
+    cached encoder output; then the decoder.  With caches, the self-
+    attention KV written in place and the encoder output in the new
+    caches."""
+    if "encoder_embeds" in batch:
+        enc_out = _encode(cfg, params, _enc_input(params, batch))
+    elif caches is not None and caches.get("enc_out") is not None:
+        enc_out = caches["enc_out"]
+    else:
+        raise ValueError(f"{cfg.name}: the decoder needs the batch's "
+                         f"encoder_embeds or a cache holding enc_out")
+    x = _embed(cfg, params, batch)
+    positions = batch.get("positions")
+    segment_ids = batch.get("segment_ids")
+    for i in range(cfg.num_layers):
+        cache = None
+        if caches is not None:
+            cache = {k: caches["self"][k][i] for k in ("k", "v")}  # views
+        x, _ = _apply_dec_block(
+            cfg, _layer(params["dec_layers"], i), x, enc_out,
+            positions=positions, segment_ids=segment_ids, cache=cache,
+            cache_index=cache_index)
+    if caches is None:
+        return x, None
+    return x, {"self": caches["self"], "enc_out": enc_out}
+
+
 def apply(cfg: ModelConfig, params, batch, *, caches=None, cache_index=None,
           last_only: bool = False, moe_groups: int = 0):
     """Forward pass.  batch: tokens (B, S) and optional positions,
-    segment_ids (B, S) (the ssm family reads neither) and vision_embeds.
+    segment_ids (B, S) (the ssm family reads neither), vision_embeds and
+    (the audio family) encoder_embeds.
     Attention caches are written in place at ``cache_index``; ssm caches
     are not written, nor are the moe family's router tallies, and the new
     ones come back.  last_only=True projects only the final position to
@@ -496,6 +608,8 @@ def apply(cfg: ModelConfig, params, batch, *, caches=None, cache_index=None,
         x, caches = _forward_ssm(cfg, params, batch, caches)
     elif cfg.family == "hybrid":
         x, caches = _forward_hybrid(cfg, params, batch, caches, cache_index)
+    elif cfg.family == "audio":
+        x, caches = _forward_audio(cfg, params, batch, caches, cache_index)
     elif is_moe(cfg):
         x, aux, caches = _forward_moe(cfg, params, batch, caches,
                                       cache_index, moe_groups)
@@ -507,15 +621,23 @@ def apply(cfg: ModelConfig, params, batch, *, caches=None, cache_index=None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.float32, device="cuda"):
+               dtype=torch.float32, device="cuda", enc_len: int = 0):
     """Zeroed decode caches: dense {"k", "v"} of shape (L, B, max_len, KH,
     hd); ssm {"conv": (L, B, W-1, conv_dim) in ``dtype``, "ssm": (L, B, h,
     p, n) float32}, broadcast views of one layer's zeros (``apply`` never
     writes an ssm cache); hybrid {"mamba": ssm's at (n_super, P), "attn":
     dense's at (n_super,), "tail": ssm's at (tail,) or None}; moe
     {"moe": dense's at (n_super,) and "router_counts" (n_super, B, k, E)
-    int32 zeros, "dense": dense's at (n_super, P-1) when P > 1}."""
+    int32 zeros, "dense": dense's at (n_super, P-1) when P > 1}; audio
+    {"self": dense's, "enc_out": (batch, enc_len, d) zeros, or None for
+    ``enc_len`` 0}."""
     _require_ported(cfg)
+    if cfg.family == "audio":
+        enc_out = (torch.zeros((batch, enc_len, cfg.d_model), dtype=dtype,
+                               device=device) if enc_len else None)
+        return {"self": _attn_cache(cfg, (cfg.num_layers,), batch, max_len,
+                                    dtype, device),
+                "enc_out": enc_out}
     if is_moe(cfg):
         P, n_super = moe_split(cfg)
         moe = _attn_cache(cfg, (n_super,), batch, max_len, dtype, device)
@@ -576,9 +698,11 @@ def forward_ranks(cfg: ModelConfig, params_list, batches, *,
     pass (``jax.checkpoint`` around the scan body).
 
     ``prefetch`` (schedule='overlap', the ``prefetch`` branch of the JAX
-    ``_forward_dense``): the layer loop is ``core.odc.prefetch_scan``, and
-    the hook materializes each layer's trees one iteration ahead in place
-    of ``pxform``, which then sees the top-level leaves only.
+    ``_forward_dense``): a dict of hooks, one per trunk group
+    (``fsdp.trunk_groups``); the layer loop is ``core.odc.prefetch_scan``,
+    and the trunk's hook materializes each layer's trees one iteration
+    ahead in place of ``pxform``, which then sees the top-level leaves
+    only.
 
     The ssm family runs each rank's mamba blocks in the same lockstep; it
     has no cp path: a recurrence split over a group's ranks would need its
@@ -598,7 +722,14 @@ def forward_ranks(cfg: ModelConfig, params_list, batches, *,
     stationary expert parallelism, each rank's tree holding its E/n
     experts (not gathered) and the moe blocks exchanging dispatch buffers
     across the ranks (``moe.moe_apply_ep``) in place of running every
-    expert on every rank."""
+    expert on every rank.
+
+    The audio family runs its two trunks in turn (``_audio_ranks``): the
+    encoder's layers over every rank's ``encoder_embeds``, then the
+    decoder's, each layer's slice through ``pxform``, or under
+    ``prefetch`` two walks, ``enc_layers`` then ``dec_layers`` (the JAX
+    package's two ``_prefetch_scan`` calls); ``remat`` recomputes each
+    layer.  It has no cp path (``require_cp``)."""
     _require_ported(cfg)
     if cp > 1:
         require_cp(cfg)
@@ -613,6 +744,10 @@ def forward_ranks(cfg: ModelConfig, params_list, batches, *,
                               moe_groups=moe_groups, ep=ep)
         return tops, xs, auxs
     zeros = [0.0] * len(xs)
+    if cfg.family == "audio":
+        return tops, _audio_ranks(cfg, params_list, tops, xs, batches,
+                                  remat=remat, px=px,
+                                  prefetch=prefetch), zeros
     if cfg.family == "hybrid":
         return tops, _hybrid_ranks(cfg, params_list, tops, xs, batches,
                                    remat=remat, px=px,
@@ -636,7 +771,7 @@ def forward_ranks(cfg: ModelConfig, params_list, batches, *,
 
     if prefetch is not None:
         return tops, prefetch_scan(blocks, xs, layer_trees, cfg.num_layers,
-                                   prefetch, remat=remat), zeros
+                                   prefetch["layers"], remat=remat), zeros
 
     def body(i, xs, trees):
         return blocks(i, xs, px(trees))
@@ -685,7 +820,8 @@ def _hybrid_ranks(cfg, params_list, tops, xs, batches, *, remat, px,
     if prefetch is not None:
         xs = prefetch_scan(lambda i, xs, full: super_layer(i, xs, full,
                                                            False),
-                           xs, super_trees, n_super, prefetch, remat=remat)
+                           xs, super_trees, n_super, prefetch["mamba"],
+                           remat=remat)
     else:
         xs = _layer_loop(lambda i, xs, sups: super_layer(i, xs, sups, True),
                          xs, super_trees, n_super, remat)
@@ -693,6 +829,38 @@ def _hybrid_ranks(cfg, params_list, tops, xs, batches, *, remat, px,
         lambda j, xs, subs: mamba(xs, px(subs)), xs,
         lambda j: [_layer(p["mamba_tail"], j) for p in params_list], tail,
         remat)
+
+
+def _audio_ranks(cfg, params_list, tops, xs, batches, *, remat, px,
+                 prefetch):
+    """The encoder-decoder of every rank in lockstep: the encoder's layers
+    over each rank's frame embeddings and ``enc_final_norm``, then the
+    decoder's layers over ``xs``, each rank's cross-attention reading its
+    own encoder output."""
+    def walk(group, blocks, carry, num_layers):
+        def trees(i):
+            return [_layer(p[group], i) for p in params_list]
+
+        if prefetch is not None:
+            return prefetch_scan(blocks, carry, trees, num_layers,
+                                 prefetch[group], remat=remat)
+        return _layer_loop(lambda i, c, t: blocks(i, c, px(t)), carry,
+                           trees, num_layers, remat)
+
+    encs = walk("enc_layers",
+                lambda i, es, full: [_encoder_block(cfg, lp, e)
+                                     for lp, e in zip(full, es)],
+                [_enc_input(t, b) for t, b in zip(tops, batches)],
+                cfg.num_encoder_layers)
+    encs = [L.rms_norm(e, t["enc_final_norm"], cfg.norm_eps)
+            for e, t in zip(encs, tops)]
+    return walk("dec_layers",
+                lambda i, xs, full: [_apply_dec_block(
+                    cfg, lp, x, e, positions=b.get("positions"),
+                    segment_ids=b.get("segment_ids"), cache=None,
+                    cache_index=None)[0]
+                    for lp, x, e, b in zip(full, xs, encs, batches)],
+                xs, cfg.num_layers)
 
 
 def _moe_blocks(cfg, lps, xs, batches, *, moe_groups, ep):
@@ -744,7 +912,7 @@ def _moe_ranks(cfg, params_list, xs, batches, *, remat, px, prefetch,
     if prefetch is not None:
         return prefetch_scan(
             lambda i, c, full: super_layer(i, c, full, False), carry,
-            super_trees, n_super, prefetch, remat=remat)
+            super_trees, n_super, prefetch["layers"], remat=remat)
     return _layer_loop(lambda i, c, sups: super_layer(i, c, sups, True),
                        carry, super_trees, n_super, remat)
 

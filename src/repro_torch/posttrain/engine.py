@@ -7,9 +7,11 @@ admission, retirement, stop and version-pinning semantics.
     lockstep to the longest request; ``generate(stop_lengths=...)``
     truncates each request at its own total length, and
     ``generate(batch_extras=...)`` adds entries (the vision stub's
-    ``vision_embeds``) to the prefill batch.  Dense, vlm, moe, ssm and
-    hybrid families; each step carries on with the cache the step
-    returns (the moe family's router tallies among it).
+    ``vision_embeds``, the audio stub's ``encoder_embeds``) to the
+    prefill batch.  Every family; each step carries on with the cache the
+    step returns (the moe family's router tallies among it, the audio
+    family's encoder output, which the prefill computes and the decode
+    steps read).
 
 ``ContinuousGenerationEngine``
     continuous (in-flight) batching: a request queue feeds ``slots``
@@ -68,9 +70,13 @@ class GenerationEngine:
         self._prefill = make_prefill_step(cfg)
         self._decode = make_decode_step(cfg)
 
-    def init_cache(self, batch_size: int, max_len: int):
+    def init_cache(self, batch_size: int, max_len: int, *,
+                   enc_len: int = 0):
+        """Fresh decode cache; the audio family's callers pass ``enc_len``
+        (the encoder's sequence length: ``generate`` uses the prompt
+        length, as the serve driver draws its frames)."""
         return T.init_cache(self.cfg, batch_size, max_len, self.dtype,
-                            self.device)
+                            self.device, enc_len=enc_len)
 
     def prompt_batch(self, prompt_tokens):
         """{tokens, positions} for a (B, S) prompt batch."""
@@ -94,7 +100,8 @@ class GenerationEngine:
         """Greedy-decode ``gen_steps`` tokens for a (B, S) prompt batch.
 
         batch_extras  entries merged into the prefill batch (the stub
-                      frontend's ``vision_embeds``, (B, n, d)).
+                      frontend's ``vision_embeds``, (B, n, d), or
+                      ``encoder_embeds``, (B, S, d)).
         stop_lengths  per-request TOTAL sequence length (prompt included);
                       request i's sequence is truncated there.  None =
                       every request runs to S + gen_steps.
@@ -104,7 +111,8 @@ class GenerationEngine:
             batch.update(batch_extras)
         B, S = batch["tokens"].shape
         max_len = S + gen_steps
-        cache = self.init_cache(B, max_len)
+        enc_len = S if self.cfg.family == "audio" else 0
+        cache = self.init_cache(B, max_len, enc_len=enc_len)
 
         _sync(self.device)
         t0 = time.perf_counter()
@@ -302,7 +310,9 @@ class ContinuousGenerationEngine:
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"continuous batching needs per-row attention-KV caches; "
-                f"family {cfg.family!r} is served by GenerationEngine")
+                f"family {cfg.family!r} is served by GenerationEngine (the "
+                f"continuous engine runs the dense family only, as the JAX "
+                f"one does: ROADMAP.md queue 1 item 2)")
         if trace is not None:
             raise NotImplementedError(
                 "the per-slot trace recorder is not ported yet (ROADMAP "

@@ -23,8 +23,11 @@ reduced zamba2 (5 layers: a tail, two invocations of the shared block)
 serve and train runs on the card against the CPU; and reduced grok-1 (the
 moe family) prefill and decode on the flash kernel against the plain
 attention route under the routing rule, and one ODC x minibatch step
-against collective x layer.  Each test needs an NVIDIA GPU and
-skips without one.
+against collective x layer; the flash kernel at seamless-m4t-medium's
+encoder and cross-attention shapes, and reduced seamless (the audio
+family) prefill and decode on the kernel against the plain attention
+route, and one ODC x minibatch step against collective x layer.  Each
+test needs an NVIDIA GPU and skips without one.
 
 This file imports no jax, so it runs on a machine that has only PyTorch:
 
@@ -1412,6 +1415,110 @@ def test_reduced_moe_odc_step_matches_collective_on_card(cuda):
                                 max_tokens=128, max_len=120, seed=0)
     sd = next(loader.steps(1))
     batch = build_minibatch(sd["plan"], sd["sample_tokens"], 128)
+    counts = [len(a) for a in sd["plan"].assignments]
+    res = {}
+    for comm, schedule in (("collective", "layer"), ("odc", "minibatch")):
+        tr = Trainer(cfg, RankGroup.make(2, "cuda"), comm=comm,
+                     schedule=schedule)
+        shards, opt = tr.init_state(_to(params, "cuda"))
+        before = KG.launches, fa.launches
+        _, _, m = tr.step(shards, opt, batch, counts)
+        res[comm] = (float(m["loss"]), float(m["grad_norm"]))
+        assert fa.launches > before[1]
+        assert (KG.launches > before[0]) == (comm == "odc")
+    (la, na), (lb, nb) = res["collective"], res["odc"]
+    assert la == lb, res
+    assert abs(na - nb) <= 1e-5 * nb, res
+
+
+# ===========================================================================
+# the audio family (seamless-m4t-medium)
+# ===========================================================================
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["seamless encoder serve",
+                                  "seamless cross prefill",
+                                  "seamless cross decode",
+                                  "seamless train cross"])
+def test_seamless_attention_shapes_match_plain(cuda, dtype, name):
+    """The encoder's and the cross-attention's calls at seamless's shapes
+    (non-causal, S != T, no segment ids), the cross decode on the decode
+    path."""
+    B, S, T, H, KH, hd, opt = chip_smoke.ATTN_CASES[name]
+    q, k, v, kw = chip_smoke._attn_case(B, S, T, H, KH, hd, dtype, seed=5,
+                                        **opt)
+    plan = fa.launch_plan(B, S, T, H, KH, hd, dtype)
+    assert plan["decode"] == (name == "seamless cross decode")
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert _close_on_valid_rows(out, fa.flash_attention_plain(q, k, v, **kw),
+                                kw, dtype)
+
+
+def test_reduced_audio_serve_on_card_matches_plain_route(cuda):
+    """Reduced seamless (2 + 2 layers) prefill with its frames and one
+    decode step from the cached encoder output, on the flash kernel and
+    on the plain attention route, same weights: logits within 1e-5 of
+    1 + |plain|, and 2 + 2 x 2 launches for the prefill, 2 x 2 for the
+    decode step."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    from repro_torch.posttrain.engine import GenerationEngine
+
+    cfg = get_reduced("seamless-m4t-medium")
+    params = T.init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(1, cfg.vocab_size, (4, 40), generator=g)
+    frames = torch.randn((4, 40, cfg.d_model), generator=g).to(cuda)
+    eng = GenerationEngine(cfg, device="cuda")
+    out = {}
+    nxt = tokens[:, -1:].to(cuda)  # the same next token on both routes
+    for route in ("kernel", "plain"):
+        prev = layers.set_attention_impl(
+            fa.flash_attention_plain if route == "plain" else None)
+        before = fa.launches
+        try:
+            batch = dict(eng.prompt_batch(tokens), encoder_embeds=frames)
+            logits, cache = eng.prefill(params, batch,
+                                        eng.init_cache(4, 48, enc_len=40))
+            mid = fa.launches
+            logits2, cache = eng.decode(params, cache, nxt, 40)
+        finally:
+            layers.set_attention_impl(prev)
+        if route == "kernel":
+            assert (mid - before, fa.launches - mid) == (2 + 2 * 2, 2 * 2)
+        else:
+            assert fa.launches == before
+        out[route] = torch.cat([logits, logits2], 1)
+    err = (out["kernel"] - out["plain"]).abs()
+    assert torch.isfinite(out["kernel"]).all()
+    assert (err <= 1e-5 * (1 + out["plain"].abs())).all(), float(err.max())
+
+
+def test_reduced_audio_odc_step_matches_collective_on_card(cuda):
+    """One reduced seamless train step with two ranks on the card, with
+    the train driver's frames, ODC x minibatch (ring kernels) against
+    collective x layer: the step-0 losses equal (the same forward) and the
+    gradient norms within 1e-5."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.ranks import RankGroup
+    from repro_torch.core.train_step import Trainer
+    from repro_torch.data.loader import SyntheticSFTLoader
+    from repro_torch.data.packing import build_minibatch
+    from repro_torch.kernels import odc_gather as KG
+    from repro_torch.launch.train import stub_extras
+    from repro_torch.models import transformer as T
+
+    cfg = get_reduced("seamless-m4t-medium")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    loader = SyntheticSFTLoader("longalign", vocab_size=cfg.vocab_size,
+                                world_size=2, minibatch_per_device=2,
+                                max_tokens=128, max_len=120, seed=0)
+    sd = next(loader.steps(1))
+    batch = build_minibatch(sd["plan"], sd["sample_tokens"], 128,
+                            extras=stub_extras(cfg, 0))
     counts = [len(a) for a in sd["plan"].assignments]
     res = {}
     for comm, schedule in (("collective", "layer"), ("odc", "minibatch")):

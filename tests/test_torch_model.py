@@ -81,9 +81,25 @@ def test_configs_are_copies():
 
 
 def test_non_dense_family_raises():
-    cfg = tconfigs.get_reduced("seamless-m4t-medium")  # audio: not ported
+    """What the audio family still refuses: context parallelism, the
+    two-tier backends (ROADMAP.md queue 1 item 14) and continuous
+    batching (item 2), each naming the ROADMAP."""
+    from repro_torch.core import backend
+    from repro_torch.posttrain.engine import ContinuousGenerationEngine
+
+    cfg = tconfigs.get_reduced("seamless-m4t-medium")
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0))
+    tok = torch.zeros((1, 8), dtype=torch.long)
+    batch = {"tokens": tok, "targets": tok}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_params(cfg, torch.Generator().manual_seed(0))
+        TT.require_cp(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TT.loss_ranks(cfg, [params, params], [batch, batch], cp=2)
+    for comm in ("hier", "pipe", "pipe-int8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            backend.resolve(comm, "minibatch", audio=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ContinuousGenerationEngine(cfg, slots=2, max_len=16, device="cpu")
 
 
 # ===========================================================================

@@ -288,10 +288,26 @@ def test_context_parallelism_refuses_the_family(model):
 
 
 def test_other_families_stay_refused():
-    for arch in ("seamless-m4t-medium",):  # audio: the family left
+    """The refusals the audio family keeps beside the ssm family's: the
+    cp and two-tier train paths and continuous batching, each naming the
+    ROADMAP."""
+    from repro_torch.core.ranks import RankGroup
+    from repro_torch.core.train_step import Trainer
+
+    for arch in ("seamless-m4t-medium",):  # audio: the last family ported
         cfg = get_reduced(arch)
-        for call in (lambda: TT.init_params(cfg, torch.Generator()),
-                     lambda: TT.param_shapes(cfg),
-                     lambda: TT.init_cache(cfg, 1, 8, device="cpu")):
+        params = TT.init_params(cfg, torch.Generator())
+        tok = torch.zeros((1, 8), dtype=torch.long)
+        batch = {"tokens": tok, "targets": tok}
+        for call in (
+                lambda: TT.require_cp(cfg),
+                lambda: TT.loss_ranks(cfg, [params, params], [batch, batch],
+                                      cp=2),
+                lambda: Trainer(cfg, RankGroup.make(4, "cpu"), comm="hier"),
+                lambda: Trainer(cfg, RankGroup.make(4, "cpu"), comm="pipe"),
+                lambda: Trainer(cfg, RankGroup.make(4, "cpu"),
+                                comm="pipe-int8"),
+                lambda: ContinuousGenerationEngine(cfg, slots=2, max_len=16,
+                                                   device="cpu")):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 call()
