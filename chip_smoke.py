@@ -56,7 +56,14 @@ attention route, and prefill of S-1 tokens plus one decode step from the
 cached encoder output against the full forward; a decode-step profile)
 and trained at full width and depth with two ranks as collective x
 layer, ODC x minibatch and odc-overlap (two chained trunks; one profiled
-step).
+step).  Post-training: GRPO on qwen-1.5b at full width and depth through
+the post-training entry point with two ranks on the card, its rollouts
+from the wave engine under ODC weight pushes (the row-1 gather kernel,
+one launch a sharded leaf), from the continuous engine with live ODC
+pushes and with the collective's barrier push, each push held bitwise to
+the trainer's parameters, the staleness bound, the --metrics push bytes
+and the --trace lanes checked; synthetic rollouts at staleness 0 on the
+kernel and on the plain route; one push timed.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -288,6 +295,23 @@ CHAMELEON_SERVE_LAYERS = 4
 # gathered copies and gradients, and a 4096-token microbatch's logits over
 # the 256,206-token tied vocabulary 4.2 GB each: full depth fits the card.
 SEAMLESS = "seamless-m4t-medium"
+# Post-training: GRPO on qwen-1.5b at its published widths and depth,
+# fp32, two ranks on the card, the JAX driver's GRPO defaults (8 prompts x
+# a group of 4, prompts of 16 tokens, rollouts up to 192 tokens), a
+# 1024-token microbatch budget, 3 iterations at staleness 1; the
+# continuous engine with 8 slots
+POSTTRAIN = dict(data_axis=2, prompts=8, group=4, prompt_len=16,
+                 rollout_max_len=192, max_tokens=1024, slots=8, lr=1e-3)
+# (run, --rollout, --comm, iterations, staleness, rollout max len): ODC
+# pushes into the wave engine and live into the continuous engine, the
+# collective's barrier push; then one short iteration under odc-overlap
+# (the chained rings train) and pipe-int8 (2 stages x 1: the push and the
+# train step on the int8 wire) for the launch counts of rows 2, 4, 7-10
+POSTTRAIN_RUNS = (("a", "engine", "odc", 3, 1, 192),
+                  ("b", "continuous", "odc", 3, 1, 192),
+                  ("c", "continuous", "collective", 3, 1, 192),
+                  ("e", "engine", "odc-overlap", 1, 0, 48),
+                  ("f", "engine", "pipe-int8", 1, 0, 48))
 
 
 def fail(msg: str):
@@ -3524,6 +3548,361 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: post-training: rollouts, weight push and trainer
+# ---------------------------------------------------------------------------
+def _posttrain_args(rollout, comm, staleness, iters, files=None,
+                    max_len=POSTTRAIN["rollout_max_len"]):
+    """POSTTRAIN's settings through the post-training driver's parser;
+    ``files``: (trace path, metrics path); ``max_len``: the rollouts'."""
+    from repro_torch.launch import posttrain
+
+    argv = ["--task", "grpo", "--arch", ARCH, "--seed", str(SEED),
+            "--device", "cuda", "--data-axis", str(POSTTRAIN["data_axis"]),
+            "--iters", str(iters), "--staleness", str(staleness),
+            "--comm", comm, "--rollout", rollout,
+            "--slots", str(POSTTRAIN["slots"]),
+            "--prompts", str(POSTTRAIN["prompts"]),
+            "--group", str(POSTTRAIN["group"]),
+            "--prompt-len", str(POSTTRAIN["prompt_len"]),
+            "--rollout-max-len", str(max_len),
+            "--max-tokens", str(POSTTRAIN["max_tokens"]),
+            "--lr", str(POSTTRAIN["lr"]), "--quiet"]
+    if files:
+        argv += ["--trace", files[0], "--metrics", files[1]]
+    return posttrain.parse_args(argv)
+
+
+def _plain_q8_push(trainer, shards):
+    """A pipe-int8 push on the plain q8 route (``core.odc.ring_gather_q8``
+    in place of the row-9 kernel's wrapper), on the card."""
+    from repro_torch.core import odc
+    from repro_torch.kernels import quant
+    from repro_torch.posttrain.weight_push import push_params
+
+    kernel = quant.odc_gather_q8
+    quant.odc_gather_q8 = lambda xs, order=None: odc.ring_gather_q8(xs,
+                                                                    order)
+    try:
+        return push_params(trainer, shards)
+    finally:
+        quant.odc_gather_q8 = kernel
+
+
+class _PosttrainProbe:
+    """Wraps ``WeightPusher.push`` and ``GRPOTask.generate_wave`` for one
+    run: after each push, the pushed parameters bitwise against the
+    trainer's (``Trainer.unshard``, concatenations; under pipe-int8, whose
+    wire rounds, against the same push on the plain q8 route) and the
+    row-1 and row-9 launches the push made; each wave's generated tokens,
+    seconds and versions."""
+
+    def __init__(self):
+        self.pushes, self.waves, self.sites = [], [], None
+
+    def __enter__(self):
+        from repro_torch.kernels import odc_gather, quant
+        from repro_torch.posttrain.tasks import GRPOTask
+        from repro_torch.posttrain.weight_push import (WeightPusher,
+                                                       push_comm_sites)
+
+        self._orig = (WeightPusher.push, GRPOTask.generate_wave)
+        push, wave = self._orig
+        probe = self
+
+        def checked_push(pusher, shards, version):
+            before = (odc_gather.launches, quant.gather_launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params = push(pusher, shards, version)  # ends synchronised
+            seconds = time.perf_counter() - t0
+            grew = (odc_gather.launches - before[0],
+                    quant.gather_launches - before[1])
+            if getattr(pusher.trainer.backend, "compress", False):
+                full = _plain_q8_push(pusher.trainer, shards)
+            else:
+                full = pusher.trainer.unshard(shards, pusher.device)
+            same = all(_bits(a).equal(_bits(b)) for a, b in
+                       zip(_leaves(params), _leaves(full)))
+            del full
+            if probe.sites is None:
+                probe.sites = push_comm_sites(pusher.trainer, shards)
+            probe.pushes.append({"version": version, "row1": grew[0],
+                                 "row9": grew[1], "bitwise": same,
+                                 "seconds": seconds})
+            return params
+
+        def timed_wave(task, it, params, version):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rollouts = wave(task, it, params, version)
+            dt = time.perf_counter() - t0  # the tokens are on the host
+            probe.waves.append({
+                "seconds": dt, "versions": [r.version for r in rollouts],
+                "generated": sum(r.length - task.prompt_len
+                                 for r in rollouts),
+                "tokens": sum(r.length for r in rollouts)})
+            return rollouts
+
+        WeightPusher.push, GRPOTask.generate_wave = checked_push, timed_wave
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.posttrain.tasks import GRPOTask
+        from repro_torch.posttrain.weight_push import WeightPusher
+
+        WeightPusher.push, GRPOTask.generate_wave = self._orig
+        return False
+
+
+def _bits(x):
+    """A tensor's bits as integers (NaN payloads compare equal)."""
+    return x.contiguous().view({8: torch.int64, 4: torch.int32,
+                                2: torch.int16}[x.element_size()])
+
+
+def _check_trace(path, wall_s, tag):
+    """The --trace file read back through ``read_trace``: its lanes, and
+    no span past the run's wall time."""
+    from repro_torch.sim.trace import read_trace
+
+    events = read_trace(path)["traceEvents"]
+    lanes = {e["args"]["name"] for e in events if e.get("ph") == "M"}
+    spans = [e for e in events if e.get("ph") in ("X", "i")]
+    end_s = max((e["ts"] + e.get("dur", 0.0)) / 1e6 for e in spans)
+    log(f"posttrain {tag}: trace lanes {sorted(lanes)}, {len(spans)} "
+        f"events, the last ends at {end_s:.3f} s of the run's "
+        f"{wall_s:.3f} s wall time")
+    missing = {"generator", "push", "trainer"} - lanes
+    if missing:
+        fail(f"posttrain {tag}: the trace has no {sorted(missing)} lane")
+    if end_s > wall_s:
+        fail(f"posttrain {tag}: a trace span ends at {end_s:.3f} s, past "
+             f"the run's {wall_s:.3f} s")
+
+
+def _push_bytes(path):
+    """comm.bytes_logical{op=push} over every tier, from the last row of
+    a --metrics file read back through ``read_jsonl``."""
+    from repro_torch.obs.metrics import read_jsonl
+
+    _, rows = read_jsonl(path)
+    return sum(m["value"] for m in rows[-1]["metrics"]
+               if m["name"] == "comm.bytes_logical"
+               and m["labels"].get("op") == "push")
+
+
+# cycles of the spin kernel queued before a timed push (about 100 ms on
+# an H100): longer than the host takes to enqueue a full-width push
+PUSH_SPIN_CYCLES = 200_000_000
+
+
+def _time_push(comm):
+    """Device ms of one weight push under ``comm`` and of the row-1
+    launches inside it, from CUDA events (no profiler: late in a whole run
+    it has lost kernel records, PERF.md §7): a spin kernel keeps the
+    device busy while the host enqueues the push, so the events bracket
+    the device's work; an event pair brackets each row-1 launch.  A push
+    from a fresh trainer's shards, after a warm one."""
+    from repro_torch.kernels import odc_gather as kgather
+    from repro_torch.launch import posttrain
+    from repro_torch.posttrain.weight_push import push_comm_sites
+
+    built = posttrain.build(_posttrain_args("engine", comm, 1, 1))
+    trainer, shards, pusher = built[1], built[2], built[6]
+    pusher.push(shards, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pusher.push(shards, 1)  # ends synchronised
+    host_ms = (time.perf_counter() - t0) * 1e3
+    kernel, pairs = kgather.odc_gather, []
+
+    def timed(shards, order=None, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = kernel(shards, order, **kw)
+        b.record()
+        pairs.append((a, b))
+        return out
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    kgather.odc_gather = timed
+    try:
+        torch.cuda._sleep(PUSH_SPIN_CYCLES)
+        start.record()
+        pusher.push(shards, 2)
+        end.record()
+        end.synchronize()
+    finally:
+        kgather.odc_gather = kernel
+    device_ms = start.elapsed_time(end)
+    row1_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    leaves = len(push_comm_sites(trainer, shards))
+    log(f"posttrain push ({comm}, {leaves} sharded leaves): host "
+        f"{host_ms:.2f} ms, device {device_ms:.4f} ms, of which row 1 "
+        f"(odc_gather) {row1_ms:.4f} ms in {len(pairs)} launches")
+    if len(pairs) != leaves or not 0 < row1_ms <= device_ms:
+        fail(f"posttrain push timing: {len(pairs)} row-1 launches for "
+             f"{leaves} leaves, {row1_ms:.4f} of {device_ms:.4f} ms")
+    del built, trainer, shards, pusher
+    return {"host_ms": host_ms, "device_ms": device_ms, "row1_ms": row1_ms,
+            "row1_launches": len(pairs)}
+
+
+def phase_posttrain() -> dict:
+    """GRPO post-training of qwen-1.5b at full width and depth through the
+    post-training entry point, two ranks on the card (POSTTRAIN): (a)
+    rollouts from the wave engine under ODC pushes, (b) from the
+    continuous engine with live ODC pushes, (c) the same with the
+    collective's barrier push, each with --trace and --metrics; (d)
+    synthetic rollouts at staleness 0 for one step on the kernel route and
+    on the plain route (plain attention, collective transport).  Holds:
+    every push bitwise the trainer's parameters, row 1 launched once per
+    sharded leaf per ODC push, staleness <= K with versions increasing,
+    comm.bytes_logical{op=push} per push the sum over push_comm_sites,
+    the trace's lanes and span ends, push_stall_s > 0 in (c) and 0 in
+    (b), and (d)'s step-0 losses within CP_PLAIN_RTOL."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import posttrain, train
+    from repro_torch.models import layers
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out_dir = tempfile.mkdtemp(prefix="posttrain_smoke_")
+    runs, launches = {}, {}
+    for key, rollout, comm, iters, K, max_len in POSTTRAIN_RUNS:
+        tag = f"({key}) {rollout} {comm}"
+        files = (os.path.join(out_dir, f"{key}.json"),
+                 os.path.join(out_dir, f"{key}.jsonl"))
+        args = _posttrain_args(rollout, comm, K, iters, files, max_len)
+        train.reset_launches()
+        t0 = time.perf_counter()
+        with _PosttrainProbe() as probe:
+            summary = posttrain.run(args)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = train.read_launches()
+        launches[f"posttrain {tag}"] = got
+        steps = summary["metrics"]
+        stal = [m["staleness"] for m in steps]
+        versions = [v for w in probe.waves for v in w["versions"]]
+        leaves = len(probe.sites or ())
+        gen_tok = sum(w["generated"] for w in probe.waves)
+        gen_s = sum(w["seconds"] for w in probe.waves)
+        # the packed rollout tokens each step trains on (the rows'
+        # "tokens" sums the advantage-signed loss mask)
+        train_tok = sum(w["tokens"] for w in probe.waves)
+        train_s = sum(m["dt"] for m in steps)
+        want_push = sum((w - 1) * b for b, w, _ in probe.sites or ())
+        got_push = _push_bytes(files[1]) / max(summary["pushes"], 1)
+        _check_trace(files[0], wall, tag)
+        # the pushes' own time (the trace's push spans also hold the
+        # probe's bitwise check)
+        push_s = sum(p["seconds"] for p in probe.pushes)
+        log(f"posttrain {tag}: losses {[m['loss'] for m in steps]}, "
+            f"staleness per step {stal}, rollouts "
+            f"{[m['rollouts'] for m in steps]}, microbatches "
+            f"{[m['microbatches'] for m in steps]}; pushes "
+            f"{summary['pushes']} (versions "
+            f"{[p['version'] for p in probe.pushes]}, row-1 / row-9 "
+            f"launches each {[(p['row1'], p['row9']) for p in probe.pushes]}"
+            f" for {leaves} sharded leaves, bitwise "
+            f"{[p['bitwise'] for p in probe.pushes]}); "
+            f"rollout {gen_tok / gen_s:.1f} tok/s ({gen_tok} generated "
+            f"tokens in {gen_s:.3f} s), train {train_tok / train_s:.1f} "
+            f"tok/s ({train_tok} packed tokens in {train_s:.3f} s, step s "
+            f"{[round(m['dt'], 3) for m in steps]}); push share of the run {push_s / wall:.2%} "
+            f"({push_s:.3f} of {wall:.3f} s); push_stall_s "
+            f"{summary['push_stall_s']:.4f}; comm.bytes_logical{{op=push}} "
+            f"per push {got_push:.0f} (sites {want_push:.0f}); launches "
+            f"{got}")
+        if not all(math.isfinite(m["loss"]) for m in steps):
+            fail(f"posttrain {tag}: a loss is not finite")
+        if len(steps) != iters or max(stal) > K:
+            fail(f"posttrain {tag}: steps {len(steps)}, staleness {stal} "
+                 f"(bound {K})")
+        if versions != sorted(versions) or \
+                [p["version"] for p in probe.pushes] != \
+                list(range(summary["pushes"])):
+            fail(f"posttrain {tag}: versions do not increase")
+        if not probe.pushes or not all(p["bitwise"] for p in probe.pushes):
+            fail(f"posttrain {tag}: a pushed parameter differs from the "
+                 f"trainer's")
+        ring, q8 = comm in ("odc", "odc-overlap"), comm == "pipe-int8"
+        want_rows = (leaves if ring else 0, leaves if q8 else 0)
+        if any((p["row1"], p["row9"]) != want_rows for p in probe.pushes):
+            fail(f"posttrain {tag}: row-1 / row-9 launches per push "
+                 f"{[(p['row1'], p['row9']) for p in probe.pushes]}, want "
+                 f"{want_rows}")
+        if got_push != want_push:
+            fail(f"posttrain {tag}: comm.bytes_logical{{op=push}} per push "
+                 f"{got_push}, want {want_push}")
+        path = {"odc": ("odc_gather", "odc_scatter_accumulate"),
+                "odc-overlap": ("odc_gather", "odc_scatter_accumulate",
+                                "odc_gather_layers",
+                                "odc_scatter_accumulate_layers"),
+                "pipe-int8": ("quantize_int8", "dequantize_int8",
+                              "odc_gather_q8", "odc_scatter_accumulate_q8"),
+                "collective": ()}[comm] + ("flash_attention",)
+        if not all(got[k] for k in path):
+            fail(f"posttrain {tag}: a kernel of the path was not launched "
+                 f"(want each of {path})")
+        if rollout == "continuous" and (
+                (summary["push_stall_s"] > 0) != (comm == "collective")):
+            fail(f"posttrain {tag}: push_stall_s "
+                 f"{summary['push_stall_s']} (a barrier push stalls, a p2p "
+                 f"push does not)")
+        runs[tag] = {"summary": summary, "launches": got, "wall_s": wall,
+                     "rollout_tok_s": gen_tok / gen_s,
+                     "train_tok_s": train_tok / train_s,
+                     "push_share": push_s / wall}
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (d): one synthetic step at staleness 0, kernel route and plain route
+    train.reset_launches()
+    kern = posttrain.run(_posttrain_args("synthetic", "odc", 0, 1))
+    kern_launches = train.read_launches()
+    launches["posttrain (d) synthetic odc"] = kern_launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    prev = layers.set_attention_impl(fa.flash_attention_plain)
+    try:
+        train.reset_launches()
+        plain = posttrain.run(_posttrain_args("synthetic", "collective", 0,
+                                              1))
+        plain_launches = train.read_launches()
+    finally:
+        layers.set_attention_impl(prev)
+    l0, p0 = kern["metrics"][0]["loss"], plain["metrics"][0]["loss"]
+    rel = abs(l0 - p0) / abs(p0)
+    log(f"posttrain (d) synthetic, staleness 0, step 0: kernel route loss "
+        f"{l0!r} (launches {kern_launches}), plain route (plain attention, "
+        f"collective transport) {p0!r}, {rel:.2e} relative (tol "
+        f"{CP_PLAIN_RTOL:g}); plain launches {sum(plain_launches.values())}")
+    if sum(plain_launches.values()) or rel > CP_PLAIN_RTOL:
+        fail("posttrain (d): step 0 on the kernel route differs from the "
+             "plain route")
+    gc.collect()
+    torch.cuda.empty_cache()
+    push = _time_push("odc")
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"posttrain: peak device memory over the phase {peak / 2 ** 30:.2f} "
+        f"GiB; the phase took {time.perf_counter() - t_phase:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"runs": runs, "launches": launches, "push": push,
+            "peak_bytes": peak}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times against bounds
 # ---------------------------------------------------------------------------
 # cycles of the spin kernel queued before each timed call (about 1 ms on
@@ -4248,6 +4627,7 @@ def main() -> int:
     cp_trained = phase_cp_train()
     tiers = phase_tier_train(trained["runs"]["odc x minibatch"])
     phase_checkpoint()
+    posttrained = phase_posttrain()
     runs = dict(trained["runs"])
     runs["cp x minibatch"] = cp_trained["run"]
     for tag, run in tiers["runs"].items():
@@ -4264,6 +4644,7 @@ def main() -> int:
         f"serve {GROK}": grok_served["launches"],
         f"serve {CHAMELEON}": chameleon["launches"],
         f"serve {SEAMLESS}": seamless_served["launches"],
+        **posttrained["launches"],
         "gather_matmul": gm["launches"]}, runs)
     log(f"all phases passed in {time.perf_counter() - t0:.1f}s")
     print(env["smi"])

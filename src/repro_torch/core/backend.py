@@ -88,10 +88,25 @@ exchange's backward (``gspmd._is_stationary_expert``); the 'minibatch'
 schedule then runs every rank's microbatch j in one lockstep forward, as
 the exchange needs every rank's tokens.  The overlap schedule refuses
 it.
+
+Comm-byte accounting (``repro.obs``): ``comm_volume`` is the reference's
+volume model per backend (the flat ring: n - 1 messages of one shard;
+``collective``: the same bytes in one fused message; the two tiers: one
+intra collective plus the inter ring's hops, ``pipe-int8``'s inter tier
+on the int8 wire), and ``record_comm`` charges one move to the active
+``obs.metrics`` registry under ``comm.messages``, ``comm.bytes_logical``,
+``comm.bytes_wire`` and the ``comm.message_bytes`` histogram, labelled
+``backend``, ``op`` (``gather``, ``scatter``, ``push``) and ``tier``.
+The reference records at trace time, once per gather site of its
+compiled step (its per-step ledger), not once per executed gather; the
+port runs eagerly and records the same sites once per step
+(``record_step``), so the two drivers' ``--metrics`` files hold the same
+rows.  With no registry active nothing is recorded.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+import math
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -100,6 +115,7 @@ from repro_torch.core.ranks import Tiers, cp_groups
 from repro_torch.kernels import odc_gather as kgather
 from repro_torch.kernels import odc_scatter as kscatter
 from repro_torch.kernels import quant as kquant
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.sim.timeline import instructions_1f1b
 
 SCHEDULES = ("layer", "minibatch", "overlap", "1f1b")
@@ -115,6 +131,11 @@ class CommBackend:
     chained = False
     #: parameters shard over a two-tier (inter, intra) layout
     two_tier = False
+    #: whether a trainer->generator weight push is a barrier every rank
+    #: and decode slot joins (the fused broadcast of ``collective``), or
+    #: one-sided, the generator pulling shards without interrupting their
+    #: owners (the p2p family: the paper's non-intrusive push)
+    push_blocks_trainer = False
 
     def ring_order(self, n: int, device_profile=None):
         """The order of this backend's rings over n ranks for a device
@@ -152,6 +173,44 @@ class CommBackend:
         ``gather_dim``, backward ``scatter_dim`` of the cotangents."""
         return list(_ParamGather.apply(self, dim, order, *shards))
 
+    # -- comm-byte accounting (obs.metrics) ---------------------------------
+    def wire_factor(self, tier: str) -> float:
+        """Wire bytes per logical byte on ``tier`` (compression ratio)."""
+        return 1.0
+
+    def comm_volume(self, op: str, shard_bytes: float, world: int,
+                    group: Optional[int] = None):
+        """``[(tier, messages, logical_bytes, wire_bytes)]`` of moving one
+        ``shard_bytes`` shard set over ``world`` ranks (``group``: the
+        intra tier's width, for the two-tier backends): the flat p2p ring,
+        ``world - 1`` hops of one shard each."""
+        if world <= 1:
+            return []
+        logical = (world - 1) * shard_bytes
+        return [("flat", world - 1, logical,
+                 logical * self.wire_factor("flat"))]
+
+    def record_comm(self, op: str, shard_bytes: float, *, world: int,
+                    group: Optional[int] = None, scale: float = 1.0):
+        """Charge one shard-set move (``scale`` of them) to the active
+        registry; a no-op without one."""
+        reg = obs_metrics.active()
+        if reg is None:
+            return
+        for tier, msgs, logical, wire in self.comm_volume(
+                op, shard_bytes, world, group):
+            labels = dict(backend=self.name, op=op, tier=tier)
+            reg.counter("comm.messages", **labels).inc(msgs * scale)
+            reg.counter("comm.bytes_logical", **labels).inc(logical * scale)
+            reg.counter("comm.bytes_wire", **labels).inc(wire * scale)
+            reg.histogram("comm.message_bytes", **labels).observe(
+                wire / msgs if msgs else 0.0, msgs * scale)
+
+    def leaf_world(self, d, n: int):
+        """(world, group) of a leaf sharded on ``d`` over n ranks: the
+        ranks its gather spans, and the intra tier's width (None: flat)."""
+        return n, None
+
     def __repr__(self):
         return f"<CommBackend {self.name!r}>"
 
@@ -178,6 +237,14 @@ class CollectiveBackend(CommBackend):
     a ring order is ignored)."""
 
     name = "collective"
+    push_blocks_trainer = True  # a fused broadcast is a global barrier
+
+    def comm_volume(self, op, shard_bytes, world, group=None):
+        # the ring's logical bytes, fused into one collective launch
+        if world <= 1:
+            return []
+        logical = (world - 1) * shard_bytes
+        return [("flat", 1, logical, logical * self.wire_factor("flat"))]
 
     def gather(self, shards, order=None):
         return odc.collective_gather(shards)
@@ -243,6 +310,31 @@ class HierBackend(CommBackend):
     def on(self, tiers: Tiers) -> "HierBackend":
         """This backend over a two-tier layout."""
         return type(self)(tiers)
+
+    def leaf_world(self, d, n):
+        if isinstance(d, fsdp.IntraDim):  # one intra collective
+            return d.intra, d.intra
+        return n, self._layout(n).intra
+
+    def comm_volume(self, op, shard_bytes, world, group=None):
+        """Two tiers: one fused intra collective per move plus ``nodes -
+        1`` node-level hops, each node holding a ``group``-shard chunk;
+        ``group >= world`` (or none) is one intra collective (a leaf of
+        the intra tier alone)."""
+        if world <= 1:
+            return []
+        g = group or world
+        if g >= world:
+            logical = (world - 1) * shard_bytes
+            return [("intra", 1, logical,
+                     logical * self.wire_factor("intra"))]
+        nodes = world // g
+        intra = (g - 1) * shard_bytes  # this node's chunk but my shard
+        inter = (nodes - 1) * g * shard_bytes  # the other nodes' chunks
+        return [
+            ("intra", 1, intra, intra * self.wire_factor("intra")),
+            ("inter", nodes - 1, inter, inter * self.wire_factor("inter")),
+        ]
 
     def _layout(self, n: int) -> Tiers:
         if self.tiers is None or self.tiers.n != n:
@@ -345,6 +437,13 @@ class PipeInt8Backend(PipeBackend):
 
     name = "pipe-int8"
     compress = True
+    #: chunked-int8 wire bytes per f32 value: one code byte and one f32
+    #: scale per ``odc.INT8_CHUNK`` values, against 4 bytes
+    int8_wire_factor = (1.0 + 4.0 / odc.INT8_CHUNK) / 4.0
+
+    def wire_factor(self, tier):
+        # only the inter tier rides the int8 wire
+        return self.int8_wire_factor if tier == "inter" else 1.0
 
 
 COLLECTIVE = CollectiveBackend()
@@ -406,6 +505,66 @@ def resolve(comm, schedule: str, *, moe: bool = False, ep: bool = False,
             "schedule is not yet ported to repro_torch (ROADMAP.md queue 1 "
             "item 13); use schedule 'minibatch' or 'layer'")
     return backend, schedule
+
+
+# ===========================================================================
+# the comm ledger of one step (obs.metrics)
+# ===========================================================================
+def comm_sites(backend, dims, shard, n: int):
+    """``(path, shard_bytes, world, group)`` of every leaf of one rank's
+    shard tree that moves over more than one rank (the leaves a gather
+    or a weight push carries bytes for)."""
+    out = []
+    for path in fsdp.tree_paths(dims):
+        d = fsdp.get(dims, path)
+        if not fsdp.moves(d):
+            continue
+        world, group = backend.leaf_world(d, n)
+        if world > 1:
+            x = fsdp.get(shard, path)
+            out.append((path, float(x.numel() * x.element_size()), world,
+                        group))
+    return out
+
+
+def record_step(backend, schedule: str, dims, shard, n: int):
+    """Charge one train step's gathers and scatters to the active
+    registry, site by site as the reference's per-step ledger counts them
+    (one record per gather site of its compiled step, repeats by trace,
+    not by execution):
+
+      'minibatch', '1f1b'  each leaf gathered once and scattered once;
+      'layer'       a leaf that is not stacked once each; a stacked leaf
+                    one block's slice, gathered twice (the layer body's
+                    forward and its rematerialized forward) and scattered
+                    once;
+      'overlap'     a trunk's leaf (``fsdp.trunk_groups``) one slice of
+                    its first stack dim (a layer, or a super-layer),
+                    gathered L + 2 times (the first prefetch, the scan
+                    body's prefetch scaled by its L iterations, and the
+                    rematerialized body's) and scattered twice; the other
+                    leaves as under 'layer'.
+
+    Microbatches do not multiply the records, as they do not in the
+    reference."""
+    if obs_metrics.active() is None:
+        return
+    trunks = (set(fsdp.trunk_groups(dims)) if schedule == "overlap"
+              else set())
+    for path, nbytes, world, group in comm_sites(backend, dims, shard, n):
+        depth = fsdp.stack_depth(path)
+        shape = fsdp.get(shard, path).shape
+        if depth == 0 or schedule in ("minibatch", "1f1b"):
+            size, gathers, scatters = nbytes, 1, 1
+        elif path[0] in trunks:
+            size, gathers, scatters = nbytes / shape[0], shape[0] + 2, 2
+        else:
+            size, gathers, scatters = (nbytes / math.prod(shape[:depth]),
+                                       2, 1)
+        backend.record_comm("gather", size, world=world, group=group,
+                            scale=gathers)
+        backend.record_comm("scatter", size, world=world, group=group,
+                            scale=scatters)
 
 
 # ===========================================================================
@@ -524,6 +683,7 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
 
         def grad_core(shards, microbatches, counts):
             n = len(shards)
+            record_step(backend, schedule, dims, shards[0], n)
             full = _gather_trees(backend, shards, dims, order, False)
             lsums = [zero(fsdp.get(s, ("final_norm",))) for s in shards]
             toks = list(lsums)
@@ -580,6 +740,7 @@ def build_schedule_grad(schedule: str, *, loss_ranks: Callable, backend,
     def grad_core(shards, microbatches, counts):
         n = len(shards)
         M = len(microbatches[0])
+        record_step(backend, schedule, dims, shards[0], n)
         if chained:
             # the trunk's sharded leaves move through the chained rings;
             # the top-level leaves and replicated per-layer leaves are

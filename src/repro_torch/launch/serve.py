@@ -30,6 +30,11 @@ the encoder output in the cache, and each decode step cross-attends to
 it; every self-, encoder and cross-attention call goes through the flash
 kernel.
 
+``--metrics m.jsonl`` writes one snapshot of the engine counters and the
+throughput gauges (``serve.*``, and in continuous mode ``engine.*``) as
+JSONL; ``--trace t.json`` (continuous mode, as in the JAX driver) writes
+the engine's per-slot scheduled timeline as a Chrome trace.
+
 Weights are random, drawn from ``--seed`` by a ``torch.Generator`` on the
 target device.  Runs on the card unless ``--device cpu`` is given;
 float32 matrix products run in full f32 (TF32 off).
@@ -41,6 +46,8 @@ Examples:
       --continuous --slots 4 --requests 12 --length-spread 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen-1.5b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen-1.5b \\
+      --reduced --device cpu --continuous --trace t.json --metrics m.jsonl
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
       --batch 8 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
@@ -60,9 +67,11 @@ import torch
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.models import transformer as T
 from repro_torch.obs import log as obs_log
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.posttrain.engine import (
     ContinuousGenerationEngine, GenerationEngine,
 )
+from repro_torch.sim.trace import TraceRecorder
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -104,17 +113,15 @@ def parse_args(argv=None):
     ap.add_argument("--block-size", type=int, default=16,
                     help="continuous: KV-block granularity (positions)")
     ap.add_argument("--trace", default="",
-                    help="not yet ported (ROADMAP queue 1, telemetry)")
+                    help="continuous: write the per-slot scheduled timeline "
+                         "as a Chrome trace JSON")
     ap.add_argument("--metrics", default="",
-                    help="not yet ported (ROADMAP queue 1, telemetry)")
+                    help="write a metrics snapshot (engine counters, "
+                         "throughput gauges) as JSONL")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--dtype", choices=tuple(DTYPES), default="float32")
     obs_log.add_log_args(ap)
     args = ap.parse_args(argv)
-    for flag in ("trace", "metrics"):
-        if getattr(args, flag):
-            ap.error(f"--{flag} is not yet ported to repro_torch (ROADMAP "
-                     f"queue 1, telemetry); use repro.launch.serve")
     if args.data_axis not in (0, 1) or args.model_axis != 1:
         ap.error("repro_torch serves on one card: --data-axis 0|1 and "
                  "--model-axis 1 only")
@@ -169,11 +176,16 @@ def make_engine(cfg, args) -> GenerationEngine:
                             dtype=DTYPES[args.dtype])
 
 
-def _serve_continuous(cfg, params, tokens, args, out) -> dict:
+def _serve_continuous(cfg, params, tokens, args, out, reg) -> dict:
     S, G = args.prompt_len, args.gen
+    rec = None
+    if args.trace:
+        rec = TraceRecorder(meta={"driver": "launch.serve", "arch": cfg.name,
+                                  "mode": "continuous", "slots": args.slots,
+                                  "clock": "scheduled"})
     engine = ContinuousGenerationEngine(
         cfg, slots=args.slots, max_len=S + G, block_size=args.block_size,
-        device=_device(args), dtype=DTYPES[args.dtype])
+        device=_device(args), dtype=DTYPES[args.dtype], trace=rec)
     engine.publish(params, 0)
     lens = _request_lengths(args.requests, G, args.length_spread, args.seed)
     prompts = tokens.cpu().numpy()
@@ -202,6 +214,13 @@ def _serve_continuous(cfg, params, tokens, args, out) -> dict:
                  f"ids: {first_ids}")
     ids = np.concatenate([c.generated for c in done]) if done else \
         np.zeros(0, np.int32)
+    if reg is not None:
+        reg.gauge("serve.requests_done").set(float(len(done)))
+        reg.gauge("serve.generated_tokens").set(float(total))
+        reg.gauge("serve.decode_steps").set(float(engine.steps))
+        reg.step(0)
+    if rec is not None:
+        out.always(f"wrote per-slot trace {rec.write(args.trace)}")
     return {"mode": "continuous", "num_layers": cfg.num_layers,
             "prefill_calls": engine.prefills, "decode_steps": engine.steps,
             "prefill_tok_s": prefill_tok_s, "decode_tok_s": decode_tok_s,
@@ -217,9 +236,25 @@ def run(args, cfg=None) -> dict:
     mode = "continuous" if args.continuous else "wave"
     out.info(f"{cfg.name} device={args.device} dtype={args.dtype} "
              f"mode={mode} prompt={args.prompt_len} gen={args.gen}")
-    if args.continuous:
-        return _serve_continuous(cfg, params, tokens, args, out)
+    reg = None
+    if args.metrics:
+        reg = obs_metrics.MetricsRegistry(meta={
+            "driver": "launch.serve", "arch": cfg.name, "mode": mode,
+            "slots": args.slots, "source": "real"})
+        reg.attach_jsonl(args.metrics)
+        obs_metrics.set_active(reg)
+    try:
+        if args.continuous:
+            return _serve_continuous(cfg, params, tokens, args, out, reg)
+        return _serve_wave(cfg, params, tokens, args, out, reg)
+    finally:
+        if reg is not None:
+            obs_metrics.set_active(None)
+            reg.close()
+            out.always(f"wrote metrics {args.metrics}")
 
+
+def _serve_wave(cfg, params, tokens, args, out, reg) -> dict:
     B, S = tokens.shape
     res = make_engine(cfg, args).generate(
         params, tokens, args.gen, batch_extras=stub_extras(cfg, args, B, S))
@@ -231,6 +266,11 @@ def run(args, cfg=None) -> dict:
              f"{res.decode_s:.2f}s ({decode_tok_s:.1f} tok/s)")
     out.info(f"sample output ids: {res.generated[0, :16].tolist()}")
     ids = res.generated
+    if reg is not None:
+        reg.gauge("serve.prefill_s").set(res.prefill_s)
+        reg.gauge("serve.decode_s").set(res.decode_s)
+        reg.gauge("serve.generated_tokens").set(float(B * (args.gen - 1)))
+        reg.step(0)
     return {"mode": "wave", "num_layers": cfg.num_layers,
             "prefill_calls": 1, "decode_steps": args.gen - 1,
             "prefill_tok_s": prefill_tok_s, "decode_tok_s": decode_tok_s,

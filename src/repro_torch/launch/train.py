@@ -45,13 +45,23 @@ frames a microbatch row (``encoder_embeds``, drawn per step from
 Weights are random, drawn from
 ``--seed`` by a ``torch.Generator`` on the target device, in float32;
 float32 products run in full f32 (TF32 off).
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given.  ``--trace t.json``
+writes each step's wall-clock host and trainer spans (the trainer's ends
+after the device has finished the step) as a Chrome trace;
+``--metrics m.jsonl`` writes one snapshot a step: the ``train.*`` gauges
+and counters and the ``comm.*`` counters and message-size histograms per
+backend, op and tier, counted site by site as the JAX driver's file
+counts them (``core.backend.record_step``).  ``--config`` (the tuner's
+result file) is not yet ported (ROADMAP.md queue 1 item 8).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen-1.5b \\
       --data-axis 2 --steps 3 --max-tokens 4096 --max-len 4096
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen-1.5b \\
       --reduced --device cpu --data-axis 2 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen-1.5b \\
+      --reduced --device cpu --data-axis 2 --steps 3 --trace t.json \\
+      --metrics m.jsonl
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen-1.5b \\
       --reduced --device cpu --data-axis 2 --comm odc-overlap --steps 2 \\
       --ckpt-dir /tmp/ckpt --save-every 2
@@ -96,8 +106,10 @@ from repro_torch.kernels import flash_attention, gather_matmul, \
     odc_gather, odc_scatter, quant, ssd_scan
 from repro_torch.models import transformer as T
 from repro_torch.obs import log as obs_log
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.schedules import cosine_schedule, linear_warmup
+from repro_torch.sim.trace import TraceRecorder, maybe_span
 
 # kernel name -> (module, its launch counter)
 KERNELS = {"flash_attention": (flash_attention, "launches"),
@@ -112,7 +124,8 @@ KERNELS = {"flash_attention": (flash_attention, "launches"),
            "odc_scatter_accumulate_q8": (quant, "scatter_launches"),
            "ssd_scan": (ssd_scan, "launches"),
            "gather_matmul": (gather_matmul, "launches")}
-_NOT_PORTED_FLAGS = ("trace", "metrics", "config")
+# the tuner's --config waits for the tuner (ROADMAP.md queue 1 item 8)
+_NOT_PORTED_FLAGS = ("config",)
 
 
 def reset_launches():
@@ -122,6 +135,35 @@ def reset_launches():
 
 def read_launches() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
+
+
+def refuse_unported(ap, args):
+    """Exit through ``ap.error`` on what the port does not run yet: a
+    tensor-parallel model axis, and the ``--comm`` / ``--schedule`` /
+    family combinations that ``backend.resolve`` refuses (shared with
+    ``launch.posttrain``); returns the backend that ``--comm`` names."""
+    if args.model_axis != 1:
+        ap.error("--model-axis > 1 is not yet ported to repro_torch "
+                 "(ROADMAP.md queue 1 item 10)")
+    backend = backends.get_backend(args.comm)
+    schedule = backend.implied_schedule or args.schedule
+    if schedule == "overlap" and (backend is backends.CP
+                                  or backend.two_tier):
+        ap.error(f"--comm {backend.name} under --schedule overlap is not "
+                 f"yet ported to repro_torch (ROADMAP.md queue 1)")
+    if (backend is backends.CP or backend.two_tier) \
+            and T.is_moe(get_config(args.arch)):
+        ap.error(f"--arch {args.arch} (the moe family) under --comm "
+                 f"{backend.name} is not yet ported to repro_torch "
+                 f"(ROADMAP.md queue 1 item 12); use --comm collective, "
+                 f"odc or odc-overlap")
+    if (backend is backends.CP or backend.two_tier) \
+            and get_config(args.arch).family == "audio":
+        ap.error(f"--arch {args.arch} (the audio family) under --comm "
+                 f"{backend.name} is not yet ported to repro_torch "
+                 f"(ROADMAP.md queue 1 item 14); use --comm collective, "
+                 f"odc or odc-overlap")
+    return backend
 
 
 def parse_args(argv=None):
@@ -207,8 +249,19 @@ def parse_args(argv=None):
                     help="resume from the latest checkpoint in --ckpt-dir "
                          "(bit-identical to an uninterrupted run: the "
                          "loader replays the skipped steps' data stream)")
-    for flag in ("--trace", "--metrics", "--config"):
-        ap.add_argument(flag, default="", help="not yet ported")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome-trace JSON of the run's wall-clock "
+                         "step timing (host and trainer lanes, the "
+                         "simulator's timeline schema; open in "
+                         "chrome://tracing or ui.perfetto.dev)")
+    ap.add_argument("--metrics", default="",
+                    help="write per-step metrics snapshots (train.* gauges "
+                         "and counters, the comm.* counters and message-size "
+                         "histograms per backend, op and tier) as JSONL, "
+                         "the JAX driver's counter names")
+    ap.add_argument("--config", default="",
+                    help="not yet ported: the tuner's result file waits for "
+                         "the tuner (ROADMAP.md queue 1 item 8)")
     ap.add_argument("--nodes", type=int, default=2,
                     help="with --comm hier: the nodes, each of "
                          "world / nodes ranks (devices)")
@@ -224,29 +277,9 @@ def parse_args(argv=None):
     for flag in _NOT_PORTED_FLAGS:
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} is not yet ported to "
-                     f"repro_torch (ROADMAP.md queue 1); use "
-                     f"repro.launch.train")
-    if args.model_axis != 1:
-        ap.error("--model-axis > 1 is not yet ported to repro_torch "
-                 "(ROADMAP.md queue 1)")
-    backend = backends.get_backend(args.comm)
-    schedule = backend.implied_schedule or args.schedule
-    if schedule == "overlap" and (backend is backends.CP
-                                  or backend.two_tier):
-        ap.error(f"--comm {backend.name} under --schedule overlap is not "
-                 f"yet ported to repro_torch (ROADMAP.md queue 1)")
-    if (backend is backends.CP or backend.two_tier) \
-            and T.is_moe(get_config(args.arch)):
-        ap.error(f"--arch {args.arch} (the moe family) under --comm "
-                 f"{backend.name} is not yet ported to repro_torch "
-                 f"(ROADMAP.md queue 1 item 12); use --comm collective, "
-                 f"odc or odc-overlap")
-    if (backend is backends.CP or backend.two_tier) \
-            and get_config(args.arch).family == "audio":
-        ap.error(f"--arch {args.arch} (the audio family) under --comm "
-                 f"{backend.name} is not yet ported to repro_torch "
-                 f"(ROADMAP.md queue 1 item 14); use --comm collective, "
-                 f"odc or odc-overlap")
+                     f"repro_torch (ROADMAP.md queue 1 item 8: the tuner); "
+                     f"use repro.launch.train")
+    backend = refuse_unported(ap, args)
     args.inter = 2
     if backend.two_tier:
         args.inter = (args.nodes if backend.name == "hier"
@@ -367,46 +400,86 @@ def run(args, *, return_params: bool = False, cfg=None,
         max_len=args.max_len, cost_model=cm, seed=args.seed,
         device_profile=profile, cp=args.cp)
 
+    rec = None
+    if args.trace:
+        rec = TraceRecorder(meta={
+            "driver": "launch.train", "arch": cfg.name,
+            "strategy": args.strategy, "schedule": args.schedule,
+            "comm": comm, "world": world})
+    reg = None
+    if args.metrics:
+        reg = obs_metrics.MetricsRegistry(meta={
+            "driver": "launch.train", "arch": cfg.name,
+            "strategy": args.strategy, "schedule": args.schedule,
+            "comm": comm, "world": world, "source": "real"})
+        reg.attach_jsonl(args.metrics)
+        obs_metrics.set_active(reg)
+
     reset_launches()
     if ranks.devices[0].type == "cuda":
         torch.cuda.reset_peak_memory_stats(ranks.devices[0])
     t_start = time.time()
     samples_done = tokens_done = 0
     losses, step_s, steps, saved = [], [], [], []
-    for i, step_data in enumerate(loader.steps(args.steps, skip=start_step),
-                                  start=start_step):
-        plan = step_data["plan"]
-        batch = build_minibatch(plan, step_data["sample_tokens"],
-                                args.max_tokens, extras=stub_extras(cfg, i))
-        counts = [len(a) for a in plan.assignments]
-        split = len(getattr(plan, "cp_split", ()))
-        t0 = time.time()
-        shards, opt, metrics = trainer.step(shards, opt, batch, counts)
-        loss = float(metrics["loss"])  # waits for the device
-        tokens = float(metrics["tokens"])
-        _sync(ranks)
-        dt = time.time() - t0
-        samples_done += len(step_data["lengths"])
-        tokens_done += tokens
-        losses.append(loss)
-        step_s.append(dt)
-        steps.append({"microbatches": int(batch["tokens"].shape[0]),
-                      "counts": counts, "tokens": tokens,
-                      "grad_norm": float(metrics["grad_norm"]),
-                      "cp_split": split})
-        out.step(i, f"step {i:4d} loss={loss:.4f} tokens={tokens:.0f} "
-                    f"M={plan.max_microbatches} dt={dt:.2f}s "
-                    f"tok/s={tokens / max(dt, 1e-9):.0f}"
-                    + (f" cp-split={split}" if args.cp > 1 else ""))
-        if args.ckpt_dir and args.save_every \
-                and (i + 1) % args.save_every == 0:
-            save_checkpoint(args.ckpt_dir, i + 1,
-                            trainer.state_tree(shards, opt))
-            saved.append(i + 1)
+    try:
+        for i, step_data in enumerate(
+                loader.steps(args.steps, skip=start_step), start=start_step):
+            plan = step_data["plan"]
+            with maybe_span(rec, "host", "compute", f"build minibatch {i}"):
+                batch = build_minibatch(plan, step_data["sample_tokens"],
+                                        args.max_tokens,
+                                        extras=stub_extras(cfg, i))
+            counts = [len(a) for a in plan.assignments]
+            split = len(getattr(plan, "cp_split", ()))
+            t0 = time.time()
+            with maybe_span(rec, "trainer", "compute", f"train step {i}"):
+                shards, opt, metrics = trainer.step(shards, opt, batch,
+                                                    counts)
+                loss = float(metrics["loss"])  # waits for the device
+                tokens = float(metrics["tokens"])
+                _sync(ranks)
+            dt = time.time() - t0
+            samples_done += len(step_data["lengths"])
+            tokens_done += tokens
+            losses.append(loss)
+            step_s.append(dt)
+            steps.append({"microbatches": int(batch["tokens"].shape[0]),
+                          "counts": counts, "tokens": tokens,
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "cp_split": split})
+            if reg is not None:
+                reg.gauge("train.loss").set(loss)
+                reg.gauge("train.step_s").set(dt)
+                reg.counter("train.tokens").inc(tokens)
+                reg.counter("train.samples").inc(
+                    float(len(step_data["lengths"])))
+                reg.step(i)
+                if rec is not None:
+                    rec.count("comm wire bytes",
+                              reg.total("comm.bytes_wire"))
+            out.step(i, f"step {i:4d} loss={loss:.4f} tokens={tokens:.0f} "
+                        f"M={plan.max_microbatches} dt={dt:.2f}s "
+                        f"tok/s={tokens / max(dt, 1e-9):.0f}"
+                        + (f" cp-split={split}" if args.cp > 1 else ""))
+            if args.ckpt_dir and args.save_every \
+                    and (i + 1) % args.save_every == 0:
+                with maybe_span(rec, "host", "push",
+                                f"checkpoint step {i + 1}"):
+                    save_checkpoint(args.ckpt_dir, i + 1,
+                                    trainer.state_tree(shards, opt))
+                saved.append(i + 1)
+    finally:
+        if reg is not None:
+            obs_metrics.set_active(None)
+            reg.close()
     dt = time.time() - t_start
     launches = read_launches()
     peak = (torch.cuda.max_memory_allocated(ranks.devices[0])
             if ranks.devices[0].type == "cuda" else 0)
+    if rec is not None:
+        out.always(f"wrote trace {rec.write(args.trace)}")
+    if reg is not None:
+        out.always(f"wrote metrics {args.metrics}")
     if not losses:
         out.always(f"done: no training steps run (--steps {args.steps}); "
                    f"setup OK")

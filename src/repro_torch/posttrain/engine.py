@@ -20,10 +20,19 @@ admission, retirement, stop and version-pinning semantics.
     request prefills into the vacated slot mid-decode.  Decoding is per
     slot position (a (B,) cache index).  ``publish`` installs a new
     versioned parameter set between decode steps; a request decodes every
-    token under the version it was admitted with.
+    token under the version it was admitted with.  A weight push lands
+    through ``publish(..., barrier=, push_time=)``: a barrier push (the
+    ``collective`` backend's) stalls every slot for the push's measured
+    time (``push_stall_s``), a p2p push lands on the push lane only.
 
-The JAX engines' ``trace=`` recorder and ``obs`` metric counters are not
-ported yet (ROADMAP queue 1, telemetry); ``trace`` must be None.
+Telemetry, as the JAX engine's: with ``trace=`` (a ``sim.trace.
+TraceRecorder``) the continuous engine places its prefills, decode steps
+and pushes on a scheduled clock (each advances it by its measured wall
+time, the device synchronised), one lane per slot plus the push lane;
+with an ``obs.metrics`` registry active it counts ``engine.admissions``,
+``engine.retirements`` and ``engine.decode_steps`` and sets the gauges
+``engine.queue_depth``, ``engine.active_slots`` and
+``engine.kv_free_blocks`` every round.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ from repro_torch.core.serve_steps import (
 )
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import metrics as obs_metrics
 
 
 def _sync(device):
@@ -57,6 +67,11 @@ class GenerationResult:
     generated: np.ndarray         # (B, gen_steps) raw greedy token grid
     prefill_s: float
     decode_s: float
+
+    @property
+    def decode_tokens_per_s(self) -> float:
+        n = int(self.generated.shape[0] * (self.generated.shape[1] - 1))
+        return n / self.decode_s if self.decode_s > 0 else 0.0
 
 
 class GenerationEngine:
@@ -294,6 +309,11 @@ class ContinuousGenerationEngine:
     max_len     per-slot KV capacity; requests need prompt+budget <= max_len
     block_size  KV-block granularity for the admission-control allocator
 
+    trace       optional ``sim.trace.TraceRecorder``: events on the
+                scheduled clock (decode steps advance it by their measured
+                time, barrier pushes by the push's), one lane per slot and
+                the push lane
+
     The weight-version contract: ``publish(params, version, ...)``
     installs a new parameter set between decode steps; a request pins the
     newest version at admission and decodes EVERY token (prefill
@@ -313,15 +333,12 @@ class ContinuousGenerationEngine:
                 f"family {cfg.family!r} is served by GenerationEngine (the "
                 f"continuous engine runs the dense family only, as the JAX "
                 f"one does: ROADMAP.md queue 1 item 2)")
-        if trace is not None:
-            raise NotImplementedError(
-                "the per-slot trace recorder is not ported yet (ROADMAP "
-                "queue 1, telemetry)")
         if slots <= 0 or max_len <= 0:
             raise ValueError("slots and max_len must be positive")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = dtype
+        self.trace = trace
         self.slots = int(slots)
         self.max_len = int(max_len)
         self.allocator = BlockAllocator(
@@ -342,19 +359,37 @@ class ContinuousGenerationEngine:
         self.decoded_tokens = 0     # tokens produced by decode steps
         self.completed: List[CompletedRequest] = []
         self._next_rid = 0
+        self._clock = 0.0           # scheduled trace clock (seconds)
+        self.push_stall_s = 0.0     # scheduled decode stall charged by pushes
 
     # -- weights ------------------------------------------------------------
-    def publish(self, params, version: int):
+    def publish(self, params, version: int, *, barrier: bool = False,
+                push_time: float = 0.0):
         """Install params as ``version`` for all FUTURE admissions.
+
         In-flight requests keep decoding under the version they pinned.
-        (The JAX engine's ``barrier``/``push_time`` stall accounting
-        belongs to the weight push, not ported yet.)"""
+        ``barrier`` (a collective push: ``push_blocks_trainer``) charges
+        ``push_time`` to every slot lane on the scheduled clock, the
+        fleet-wide stall a broadcast implies, while a p2p push lands on
+        the push lane only, overlapping the decode steps after it.
+        """
         if version <= self.version:
             raise ValueError(
                 f"publish({version}) but engine already holds "
                 f"v{self.version}: versions must increase")
         self._params[version] = params
         self.version = version
+        if self.trace is not None and push_time > 0.0:
+            self.trace.event("push", "push", self._clock, push_time,
+                             f"weights v{version}")
+        if barrier and push_time > 0.0:
+            if self.trace is not None:
+                for s in range(self.slots):
+                    self.trace.event(f"slot{s}", "push", self._clock,
+                                     push_time,
+                                     f"push barrier v{version}")
+            self.push_stall_s += push_time * self.slots
+            self._clock += push_time
         self._gc_versions()
 
     def _gc_versions(self):
@@ -387,6 +422,10 @@ class ContinuousGenerationEngine:
     def active(self) -> int:
         return sum(1 for st in self._slots if st is not None)
 
+    @property
+    def queued(self) -> int:
+        return len(self._queue)
+
     # -- admission / retirement ---------------------------------------------
     def _admit(self):
         for s in range(self.slots):
@@ -406,6 +445,9 @@ class ContinuousGenerationEngine:
                 position=req.prompt_len, last_token=first,
                 generated=[first], block_table=table,
                 admitted_step=self.steps)
+            reg = obs_metrics.active()
+            if reg is not None:
+                reg.counter("engine.admissions").inc(1.0)
 
     def _prefill_into_slot(self, s: int, req: Request) -> int:
         """B=1 prefill under the CURRENT version's params, copied into
@@ -423,8 +465,13 @@ class ContinuousGenerationEngine:
         for name, big in self._cache.items():
             big[:, s] = row_cache[name][:, 0]
         first = int(logits[0, -1].argmax())  # waits for the device
-        self.prefill_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.prefill_s += dt
         self.prefills += 1
+        if self.trace is not None:
+            self.trace.event(f"slot{s}", "compute", self._clock, dt,
+                             f"prefill req {req.rid}")
+        self._clock += dt
         return first
 
     def _finish_reason(self, st: _SlotState) -> Optional[str]:
@@ -455,6 +502,9 @@ class ContinuousGenerationEngine:
                 finish_reason=reason, blocks=len(st.block_table)))
             self.allocator.free(st.block_table, req.rid)
             self._slots[s] = None
+            reg = obs_metrics.active()
+            if reg is not None:
+                reg.counter("engine.retirements").inc(1.0)
         self._gc_versions()
 
     # -- the decode loop ----------------------------------------------------
@@ -464,6 +514,15 @@ class ContinuousGenerationEngine:
         Returns False once the queue and all slots are empty."""
         self._retire()
         self._admit()
+        if self.trace is not None:
+            self.trace.count("queue depth", float(len(self._queue)),
+                             at=self._clock)
+        reg = obs_metrics.active()
+        if reg is not None:
+            reg.gauge("engine.queue_depth").set(float(len(self._queue)))
+            reg.gauge("engine.active_slots").set(float(self.active))
+            reg.gauge("engine.kv_free_blocks").set(
+                float(self.allocator.free_blocks))
         # a freshly admitted request whose prefill token already met its
         # budget (or hit eos) must not decode: it retires next round
         states = [(s, st) for s, st in enumerate(self._slots)
@@ -485,13 +544,21 @@ class ContinuousGenerationEngine:
         out = self._decode_all_versions(
             torch.as_tensor(tokens, device=self.device),
             torch.as_tensor(index, device=self.device), states)
-        self.decode_s += time.perf_counter() - t0  # out is on the host
+        dt = time.perf_counter() - t0  # out is on the host
+        self.decode_s += dt
         self.decoded_tokens += len(states)
         for s, st in states:
             st.generated.append(int(out[s]))
             st.last_token = int(out[s])
             st.position += 1
+            if self.trace is not None:
+                self.trace.event(
+                    f"slot{s}", "decode", self._clock, dt,
+                    f"req {st.request.rid} v{st.version}")
+        self._clock += dt
         self.steps += 1
+        if reg is not None:
+            reg.counter("engine.decode_steps").inc(1.0)
         return True
 
     def _decode_all_versions(self, tokens, index, states):

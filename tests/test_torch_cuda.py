@@ -26,7 +26,11 @@ attention route under the routing rule, and one ODC x minibatch step
 against collective x layer; the flash kernel at seamless-m4t-medium's
 encoder and cross-attention shapes, and reduced seamless (the audio
 family) prefill and decode on the kernel against the plain attention
-route, and one ODC x minibatch step against collective x layer.  Each
+route, and one ODC x minibatch step against collective x layer; a reduced
+GRPO step through the post-training driver on the kernel route against
+the plain route, an ODC weight push bitwise the trainer's parameters with
+one row-1 launch a sharded leaf, and continuous runs with live pushes
+under collective (a barrier that stalls the slots) and odc (none).  Each
 test needs an NVIDIA GPU and skips without one.
 
 This file imports no jax, so it runs on a machine that has only PyTorch:
@@ -1533,3 +1537,66 @@ def test_reduced_audio_odc_step_matches_collective_on_card(cuda):
     (la, na), (lb, nb) = res["collective"], res["odc"]
     assert la == lb, res
     assert abs(na - nb) <= 1e-5 * nb, res
+
+
+# ===========================================================================
+# post-training: a GRPO step, the weight push, live pushes
+# ===========================================================================
+def _posttrain_argv(*flags):
+    return ["--arch", "qwen-1.5b", "--reduced", "--device", "cuda",
+            "--seed", "0", "--quiet", *flags]
+
+
+def test_reduced_grpo_step_on_kernel_route_matches_plain_route(cuda):
+    from repro_torch.launch import posttrain, train
+    from repro_torch.models import layers
+
+    argv = _posttrain_argv("--rollout", "synthetic", "--staleness", "0",
+                           "--iters", "1")
+    train.reset_launches()
+    kern = posttrain.run(posttrain.parse_args(argv + ["--comm", "odc"]))
+    launches = train.read_launches()
+    prev = layers.set_attention_impl(fa.flash_attention_plain)
+    try:
+        train.reset_launches()
+        plain = posttrain.run(posttrain.parse_args(
+            argv + ["--comm", "collective"]))
+        plain_launches = train.read_launches()
+    finally:
+        layers.set_attention_impl(prev)
+    l0, p0 = kern["metrics"][0]["loss"], plain["metrics"][0]["loss"]
+    assert launches["flash_attention"] > 0 and launches["odc_gather"] > 0
+    assert launches["odc_scatter_accumulate"] > 0
+    assert sum(plain_launches.values()) == 0
+    assert abs(l0 - p0) <= 1e-5 * abs(p0)
+
+
+def test_odc_push_is_the_trainers_parameters_bitwise(cuda):
+    from repro_torch.kernels import odc_gather
+    from repro_torch.launch import posttrain
+    from repro_torch.posttrain.weight_push import push_comm_sites
+
+    built = posttrain.build(posttrain.parse_args(_posttrain_argv(
+        "--rollout", "engine", "--comm", "odc")))
+    trainer, shards, pusher = built[1], built[2], built[6]
+    sites = push_comm_sites(trainer, shards)
+    before = odc_gather.launches
+    params = pusher.push(shards, 0)
+    assert odc_gather.launches - before == len(sites) > 0
+    full = trainer.unshard(shards, "cuda")
+    for a, b in zip(chip_smoke._leaves(params), chip_smoke._leaves(full)):
+        assert a.is_cuda and chip_smoke._bits(a).equal(chip_smoke._bits(b))
+
+
+@pytest.mark.parametrize("comm", ["collective", "odc"])
+def test_continuous_run_with_live_pushes(cuda, comm):
+    from repro_torch.launch import posttrain
+
+    summary = posttrain.run(posttrain.parse_args(_posttrain_argv(
+        "--rollout", "continuous", "--slots", "4", "--comm", comm,
+        "--staleness", "1", "--iters", "3")))
+    # v0 before wave 0, v1 before wave 2 (waves 0 and 1 ride v0)
+    assert summary["pushes"] == 2
+    assert [m["staleness"] for m in summary["metrics"]] == [0, 1, 1]
+    assert all(np.isfinite(m["loss"]) for m in summary["metrics"])
+    assert (summary["push_stall_s"] > 0) == (comm == "collective")

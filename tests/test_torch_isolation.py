@@ -36,6 +36,9 @@ REQUIRED = (
     "data/lengths.py", "data/packing.py", "data/loader.py",
     "balance/cost.py", "balance/kk.py", "balance/strategies.py",
     "launch/train.py", "launch/serve.py", "bridge.py",
+    "obs/metrics.py", "sim/trace.py", "posttrain/engine.py",
+    "posttrain/buffer.py", "posttrain/tasks.py", "posttrain/weight_push.py",
+    "posttrain/pipeline.py", "launch/posttrain.py",
 )
 
 

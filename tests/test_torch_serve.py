@@ -185,10 +185,14 @@ def test_continuous_eos_and_queue_rules(setup):
 
 
 def test_continuous_refuses_trace_recorder(setup):
-    cfg, _, _ = setup
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        ContinuousGenerationEngine(cfg, slots=1, max_len=8, device="cpu",
-                                   trace=object())
+    # the engine now takes a trace recorder; a recorder does not get a
+    # family other than dense past the continuous engine's refusal
+    from repro_torch.configs import get_reduced
+    from repro_torch.sim.trace import TraceRecorder
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ContinuousGenerationEngine(get_reduced("mamba2-2.7b"), slots=1,
+                                   max_len=8, device="cpu",
+                                   trace=TraceRecorder())
 
 
 # ===========================================================================
@@ -275,7 +279,8 @@ def test_default_device_refuses_cpu_fallback(monkeypatch):
         serve.run(args)
 
 
-@pytest.mark.parametrize("flag", [["--trace", "t.json"], ["--metrics", "m"],
+@pytest.mark.parametrize("flag", [["--data-axis", "2"],
+                                  ["--model-axis", "2", "--data-axis", "1"],
                                   ["--model-axis", "2"]])
 def test_unported_flags_exit_with_error(flag, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -76,7 +76,9 @@ def test_driver_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--trace", "t.json"], ["--metrics", "m.jsonl"], ["--config", "c.json"],
+    ["--comm", "cp", "--arch", "grok-1-314b"],
+    ["--comm", "hier", "--arch", "seamless-m4t-medium"],
+    ["--config", "c.json"],
     ["--model-axis", "2"], ["--comm", "cp", "--schedule", "overlap"],
     ["--comm", "hier", "--schedule", "overlap"]])
 def test_driver_refuses_what_is_not_ported(flags, capsys):
